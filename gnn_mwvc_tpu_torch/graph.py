@@ -1,0 +1,156 @@
+"""Graph containers: a numpy CSR on the host, tensors on one device.
+
+``Graph`` keeps the JAX package's canonical form (unique undirected edges,
+u < v, sorted; both directions in the CSR, rows sorted), so both packages see
+the same vertex and edge order for the same input.
+
+``DeviceGraph`` is the CSR the GNN forward reads on a torch device.  It is
+not padded to shape buckets: PyTorch runs eagerly and compiles nothing per
+shape, so every array has exactly the graph's size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["Graph", "DeviceGraph", "build_road_graph"]
+
+
+class Graph:
+    """Undirected vertex-weighted graph in CSR form (host side, numpy).
+
+    weights: (N,) integer vertex weights.  edges: (M, 2) undirected edges;
+    duplicates, reversed pairs and self-loops are canonicalised away.
+    """
+
+    __slots__ = ("n", "m", "weights", "indptr", "indices")
+
+    def __init__(self, weights: np.ndarray, edges: np.ndarray | None):
+        weights = np.asarray(weights)
+        self.n = int(weights.shape[0])
+        self.weights = weights
+        if edges is None or len(edges) == 0:
+            edges = np.zeros((0, 2), dtype=np.int64)
+        edges = np.asarray(edges)
+        if len(edges):
+            key = edges[:, 0].astype(np.int64) * self.n + edges[:, 1]
+            canonical = bool((edges[:, 0] < edges[:, 1]).all()
+                             and (key[1:] > key[:-1]).all())
+            if not canonical:
+                e = np.sort(edges.astype(np.int64), axis=1)
+                edges = np.unique(e[e[:, 0] != e[:, 1]], axis=0)
+        self.m = int(edges.shape[0])
+        row = np.concatenate([edges[:, 0], edges[:, 1]])
+        col = np.concatenate([edges[:, 1], edges[:, 0]])
+        order = np.lexsort((col, row))
+        row, col = row[order], col[order]
+        self.indptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(row, minlength=self.n), out=self.indptr[1:])
+        self.indices = col.astype(np.int64)
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def row_ids(self) -> np.ndarray:
+        """Expanded row index per CSR entry."""
+        return np.repeat(np.arange(self.n, dtype=np.int64), self.degrees)
+
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.indices[self.indptr[u]:self.indptr[u + 1]]
+
+    def edge_array(self) -> np.ndarray:
+        """(M, 2) array of unique edges with u < v."""
+        rows = self.row_ids()
+        keep = rows < self.indices
+        return np.stack([rows[keep], self.indices[keep]], axis=1)
+
+    def reorder(self, perm: np.ndarray) -> "Graph":
+        """Relabel vertices: perm[i] = old id placed at new position i."""
+        perm = np.asarray(perm, dtype=np.int64)
+        inv = np.empty(self.n, dtype=np.int64)
+        inv[perm] = np.arange(self.n)
+        e = inv[self.edge_array()]
+        return Graph(self.weights[perm], np.sort(e, axis=1))
+
+    def __repr__(self) -> str:
+        return f"Graph(n={self.n}, m={self.m})"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGraph:
+    """Symmetric CSR plus per-node features, all on one torch device.
+
+    indptr (n+1,) / indices (nnz,) int32; weights, degrees, nw (n,) float32
+    (raw vertex weight, degree, neighbourhood weight sum).
+    """
+
+    n: int
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    weights: torch.Tensor
+    degrees: torch.Tensor
+    nw: torch.Tensor
+
+    @staticmethod
+    def build(weights, indptr, indices, device) -> "DeviceGraph":
+        weights = np.asarray(weights)
+        indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.asarray(indices, dtype=np.int64)
+        n = len(weights)
+        # the kernels index x by these without bounds checks
+        if indptr.shape != (n + 1,) or indptr[-1] != len(indices):
+            raise ValueError("indptr does not describe a CSR over the nodes")
+        if len(indices) and (indices.min() < 0 or indices.max() >= n):
+            raise ValueError("CSR column index out of range")
+        if len(indices) >= 2**31:
+            raise ValueError(f"{len(indices)} directed edges overflow int32")
+        deg = np.diff(indptr)
+        rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+        w32 = weights.astype(np.float32)
+        # float64 sums of integer weights are exact, then rounded once
+        nw = np.bincount(rows, weights=w32[indices].astype(np.float64),
+                         minlength=n).astype(np.float32)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+        return DeviceGraph(
+            n=n, indptr=put(indptr, np.int32), indices=put(indices, np.int32),
+            weights=put(w32, np.float32), degrees=put(deg, np.float32),
+            nw=put(nw, np.float32))
+
+    @staticmethod
+    def from_graph(g: Graph, device) -> "DeviceGraph":
+        return DeviceGraph.build(g.weights, g.indptr, g.indices, device)
+
+
+def build_road_graph(side: int, seed: int = 42, extra: float = 0.05) -> Graph:
+    """Road-network-like workload: a side x side grid with 8-neighbourhoods
+    plus 5% random local shortcuts and weights in [1, 1000].  The same
+    generator (and, for a given seed, the same graph) as the JAX package's
+    ``bench.py``; side 1200 gives 1,440,000 nodes."""
+    rng = np.random.default_rng(seed)
+    n = side * side
+    ii, jj = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    u = (ii * side + jj).ravel()
+    edges = []
+    right = u[(jj < side - 1).ravel()]
+    edges.append(np.stack([right, right + 1], 1))
+    down = u[(ii < side - 1).ravel()]
+    edges.append(np.stack([down, down + side], 1))
+    diag = u[((ii < side - 1) & (jj < side - 1)).ravel()]
+    edges.append(np.stack([diag, diag + side + 1], 1))
+    anti = u[((ii < side - 1) & (jj > 0)).ravel()]
+    edges.append(np.stack([anti, anti + side - 1], 1))
+    ns = int(n * extra)
+    a = rng.integers(0, n - 1, size=ns)
+    b = np.clip(a + rng.integers(1, 5 * side, size=ns), 0, n - 1)
+    keep = a != b
+    edges.append(np.stack([np.minimum(a, b)[keep], np.maximum(a, b)[keep]], 1))
+    e = np.unique(np.concatenate(edges, 0), axis=0)
+    w = rng.integers(1, 1001, size=n)
+    return Graph(w, e)

@@ -1,0 +1,328 @@
+"""End-to-end GNN-guided MWVC solve on one torch device.
+
+  phase 1 (kernelize + peel): the native core reduces the graph to a fixed
+      point; then loop { exactly solve small components; score every live
+      vertex with the GNN on the device; order by confidence; peel decisions
+      through the core until its staleness trigger } until the graph is
+      empty.
+  phase 2 (local search): the peeled decisions over the kernel are the
+      initial cover of the native anytime local search, run in adaptive
+      batches until the time budget, with an ILS kick schedule.  With the
+      device assist (default on CUDA) the kernel is scored once on the
+      device: the kicks are biased by model misfit, and batches of small
+      regions are solved exactly on the device and patched back.
+  finally: unfold all reductions and return the cover of the input graph.
+
+The GNN forward and the region solver are the only device work; the rest
+is the C++ core shared with the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gnn_mwvc_tpu_torch.core import (
+    CoreLocalSearch,
+    CoreSolver,
+    cluster_order,
+    confidence_order_native,
+)
+from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
+from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model, score_graph
+
+__all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
+           "gnn_peel", "resolve_device", "solve"]
+
+CONF_EPS = 1e-4  # confidence tie width (the reference's GNN_VC.cpp:196)
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device to run on; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available; "
+            "pass device='cpu' to run on the host")
+    return device
+
+
+class GnnScorer:
+    """Per-snapshot scorer: one forward over each round's compacted kernel
+    snapshot, ``scorer(snapshot, weight_scale) -> prob``."""
+
+    def __init__(self, model: Optional[MWVCModel] = None, device="cuda",
+                 compat: bool = True):
+        self.device = resolve_device(device)
+        self.model = (model if model is not None
+                      else pretrained_model()).to(self.device)
+        self.compat = compat
+
+    def __call__(self, snap, weight_scale: float) -> np.ndarray:
+        if snap.n == 0:
+            return np.zeros(0, np.float32)
+        dg = DeviceGraph.build(snap.weights, snap.indptr, snap.indices,
+                               self.device)
+        return score_graph(self.model, dg, weight_scale,
+                           self.compat).cpu().numpy()
+
+
+def confidence_order(prob: np.ndarray, weights: np.ndarray,
+                     deg: np.ndarray) -> np.ndarray:
+    """The reference's confidence order: eps-bucketed min(p, 1-p)
+    ascending; within a bucket exclusions first; inclusion ties by weight
+    ascending then degree descending, exclusion ties by weight descending
+    then degree ascending."""
+    return confidence_order_native(prob, weights, deg, CONF_EPS)
+
+
+@dataclasses.dataclass
+class SolveResult:
+    solution: np.ndarray        # 0/1 per original vertex
+    cost: int                   # cost of the cover written
+    best_seen: int              # cheapest cost observed (may be < cost)
+    time_to_best: float
+    time_gnn: float
+    time_total: float
+    kernel_size: int            # nodes left after the initial reductions
+    initial_cost: int           # cost paid by the initial reductions
+    counters: np.ndarray        # rule-fire counters r1..r8
+    ls_steps: int = 0
+    assist_stats: Optional[dict] = None
+    # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, and the
+    # scorer's own stats under "scorer"
+    phase1: Optional[dict] = None
+
+
+def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
+             relable_interval: int = -1, component_limit: int = 75,
+             verbose: bool = False, metrics=None):
+    """Phase 1; returns (timestamp of the kernel, kernel size, initial cost,
+    phase-1 split).
+
+    ``scorer`` is either a per-snapshot callable
+    ``scorer(snapshot, weight_scale) -> prob`` or has the sticky protocol
+    ``scorer.score_core(core, weight_scale) -> (ids, prob, w, deg)``.
+    """
+    t0 = time.perf_counter()
+    core.reduce()
+    split = {"t_reduce0_s": time.perf_counter() - t0, "t_score_s": 0.0,
+             "t_peel_s": 0.0, "rounds": 0}
+    t_kernel = None
+    kernel_size = 0
+    initial_cost = 0
+    sticky = hasattr(scorer, "score_core")
+    while core.active_count > 0:
+        core.solve_small_components(component_limit)
+        if t_kernel is None:
+            t_kernel = core.timestamp
+            kernel_size = core.active_count
+            initial_cost = core.cost
+        if core.active_count == 0:
+            break
+        t0 = time.perf_counter()
+        if sticky:
+            ids, prob, wts, deg = scorer.score_core(core, weight_scale)
+            edges_scored = int(deg.sum())
+        else:
+            snap = core.snapshot()
+            prob = scorer(snap, weight_scale)
+            ids, wts, deg = snap.ids, snap.weights, snap.deg
+            edges_scored = int(snap.indptr[-1]) if snap.n else 0
+        t_score = time.perf_counter() - t0
+        order = confidence_order(prob, wts, deg)
+        core.reset_label_count()
+        if verbose:
+            print(f"Remaining nodes: {core.active_count}", end="\r",
+                  flush=True)
+        n_before = core.active_count
+        t0 = time.perf_counter()
+        core.peel(ids[order], prob[order].astype(np.float32),
+                  relable_interval)
+        t_peel = time.perf_counter() - t0
+        split["t_score_s"] += t_score
+        split["t_peel_s"] += t_peel
+        split["rounds"] += 1
+        if metrics is not None:
+            metrics.record_round(
+                nodes_remaining=core.active_count, edges_scored=edges_scored,
+                decisions=n_before - core.active_count,
+                label_count=core.label_count, seconds_score=t_score,
+                seconds_peel=t_peel)
+    if t_kernel is None:
+        t_kernel = core.timestamp
+    if isinstance(getattr(scorer, "stats", None), dict):
+        split["scorer"] = dict(scorer.stats)
+    return t_kernel, kernel_size, initial_cost, split
+
+
+def solve(
+    g: Graph,
+    model: Optional[MWVCModel] = None,
+    time_limit: float = 1000.0,
+    relable_interval: int = -1,
+    verbose: bool = False,
+    scorer=None,
+    seed_step_size: int = 1 << 16,
+    reorder: bool = False,
+    metrics=None,
+    ls_forget_after: int = 0,
+    ls_ils_stall: int = 256,
+    ls_ils_k: int = 16,
+    ls_seed: int = 1,
+    device_assist="auto",
+    assist_batch: int = 1024,
+    assist_rmax: int = 20,
+    device="cuda",
+) -> SolveResult:
+    """Solve MWVC on ``g`` within ``time_limit`` seconds (phase 2 is
+    skipped when phase 1 alone uses the budget).
+
+    device: where the GNN and the region solver run; "cuda" without CUDA
+    raises.  scorer: defaults to sticky scoring on ``device``.
+    device_assist: "auto" = on iff ``device`` is CUDA.
+
+    ls_ils_stall > 0 enables the ILS schedule: after that many consecutive
+    non-improving batches at the step-size floor, restore the best cover
+    and kick it with a force-k perturbation (k doubles while kicks fail to
+    find a new best and resets on success).  ls_ils_stall=0 gives the
+    reference's plain phase-2 search.  ls_forget_after > 0 instead decays
+    learned edge weights on stall.
+    """
+    t_start = time.perf_counter()
+    device = resolve_device(device)
+    if g.n == 0:
+        return SolveResult(np.zeros(0, np.int8), 0, 0, 0.0, 0.0, 0.0, 0, 0,
+                           np.zeros(8, np.uint64))
+
+    perm = None
+    if reorder:
+        # clustered relabel for aggregation locality; the solution is mapped
+        # back to the input's ids at the end
+        perm = cluster_order(g.indptr, g.indices)
+        g = g.reorder(perm)
+
+    weight_scale = float(g.weights.max())
+    if model is None:
+        model = getattr(scorer, "model", None)
+    if model is None:
+        model = pretrained_model()
+    if scorer is None:
+        from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+
+        scorer = StickyGnnScorer(model, device=device)
+
+    core = CoreSolver(g.weights, g.edge_array())
+    t_kernel, kernel_size, initial_cost, split = gnn_peel(
+        core, scorer, weight_scale, relable_interval, verbose=verbose,
+        metrics=metrics)
+    core.unfold(t_kernel)  # rewind the peel; its decisions stay as the cover
+    time_gnn = time.perf_counter() - t_start
+    if verbose:
+        print(f"GNN-VC done in {time_gnn:.3f}s, cost: {core.cost}")
+
+    def _unperm(sol):
+        if perm is None:
+            return sol
+        out = np.empty_like(sol)
+        out[perm] = sol
+        return out
+
+    if core.active_count == 0:
+        core.unfold(0)
+        sol = core.solution()
+        if (sol < 0).any():
+            raise RuntimeError("core left vertices undecided")
+        return SolveResult(
+            _unperm(sol.astype(np.int8)), core.cost, core.cost, time_gnn,
+            time_gnn, time.perf_counter() - t_start, kernel_size,
+            initial_cost, core.counters, phase1=split)
+
+    # ---- phase 2: local search over the kernel -----------------------------
+    snap = core.snapshot()
+    rows = np.repeat(np.arange(snap.n, dtype=np.int64),
+                     np.diff(snap.indptr.astype(np.int64)))
+    keep = rows < snap.indices
+    kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
+    s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
+    ls = CoreLocalSearch(snap.weights, kedges, s0)
+
+    assist = None
+    kick_bias = None
+    if device_assist == "auto":
+        device_assist = device.type == "cuda"
+    if device_assist and time_gnn < time_limit:
+        from gnn_mwvc_tpu_torch.solver.device_assist import DeviceAssist
+
+        # kernel scores (one forward on the device) bias the kicks and the
+        # region-centre sampling
+        prob = GnnScorer(model, device=device)(snap, weight_scale)
+        kick_bias = np.clip(1.0 - prob, 0.05, 1.0).astype(np.float32)
+        assist = DeviceAssist(prob, device=device, batch=assist_batch,
+                              rmax=assist_rmax, seed=ls_seed)
+
+    t2 = time.perf_counter()
+    t_best = t2
+    step_size = seed_step_size
+    stalled = 0
+    kicks = 0
+    k_cur = ls_ils_k
+    best_at_kick = 1 << 62
+    while time_gnn + (time.perf_counter() - t2) < time_limit:
+        remaining = time_limit - time_gnn - (time.perf_counter() - t2)
+        if ls.search(step_size, remaining):
+            stalled = 0
+            t_best = time.perf_counter()
+            step_size = min(step_size * 2, 1 << 16)
+            if verbose:
+                print(f"{time_gnn + (t_best - t2):.2f},"
+                      f"{ls.best_cost + initial_cost}, step size {step_size}")
+        else:
+            step_size = max(step_size // 2, 1 << 10)
+            if step_size == 1 << 10:
+                stalled += 1
+                if ls_forget_after and stalled >= ls_forget_after:
+                    ls.forget(0.3)
+                    stalled = 0
+                elif ls_ils_stall and stalled >= ls_ils_stall:
+                    stalled = 0
+                    kicks += 1
+                    if ls.best_cost < best_at_kick:
+                        k_cur = ls_ils_k
+                    else:
+                        k_cur = min(k_cur * 2, 4096)
+                    best_at_kick = ls.best_cost
+                    ls.restore_best()
+                    if kick_bias is not None:
+                        ls.perturb_guided(k_cur, ls_seed + kicks, kick_bias)
+                    else:
+                        ls.perturb(k_cur, ls_seed + kicks)
+                    step_size = 1 << 16
+        if assist is not None:
+            prev_best = ls.best_cost
+            assist.tick(ls)
+            if ls.best_cost < prev_best:
+                t_best = time.perf_counter()
+                if verbose:
+                    print(f"{time_gnn + (t_best - t2):.2f},"
+                          f"{ls.best_cost + initial_cost}, device patch")
+
+    if assist is not None:
+        assist.stop()
+    # the best cover back into the core (cost in kernel-state weights)
+    core.apply_cover(snap.ids, ls.best())
+    core.unfold(0)
+    sol = core.solution()
+    if (sol < 0).any():
+        raise RuntimeError("core left vertices undecided")
+    return SolveResult(
+        _unperm(sol.astype(np.int8)), core.cost,
+        min(ls.best_seen + initial_cost, core.cost), time_gnn + (t_best - t2),
+        time_gnn, time.perf_counter() - t_start, kernel_size, initial_cost,
+        core.counters, ls_steps=ls.steps,
+        assist_stats=dict(assist.stats) if assist is not None else None,
+        phase1=split)
