@@ -12,10 +12,23 @@ non-zero:
   4. K1      - CSR neighbour sum vs its plain version on the 1.44M-node
                road-like graph: within 1e-5, bitwise repeatable; edges/s
   5. forward - the published model on the full graph, through K1 and
-               through the plain aggregation: within 2e-5; edges/s
+               through the plain aggregation: within 2e-5; edges/s.
+     backward - on the same graph: K1's backward alone (w = 16, masked and
+               unmasked) within 1e-5 of autograd of the plain version and
+               bitwise repeatable; the full-model SSE gradients of a
+               random-init reference model through K1 and through the plain
+               aggregation, every parameter tensor within 1e-4 of its
+               largest entry; forward + backward ms and edges/s
   6. solve   - solve() on the road-like graph (1,440,000 nodes) with the
                kernel launch counters reset just before: a valid cover, K1
                launched in phase 1, K4 launched by the phase-2 assist
+  7. train   - 8 road-like graphs (side 400) kernelised with the 3 rules and
+               labelled by solve()'s phase-1 cover (over 1,000,000 kernel
+               vertices), then train() for 2 epochs on the card with the
+               counters reset just before: finite losses, moved parameters,
+               K1's backward launched for every training graph, and the
+               saved model reloads and drives a valid solve(); ms per SGD
+               step, vertices/s, per-epoch losses
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -29,6 +42,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROAD_SIDE = 1200  # 1,440,000 nodes: the road1200 workload
+# training corpus: 8 x 160,000 nodes; the 3-rule kernel keeps ~98% of a
+# road-like graph, so 7 training graphs of ~157k kernel vertices fire the
+# 500k-vertex accumulation twice a pass (once mid-pass, once at its end)
+TRAIN_SIDE = 400
+TRAIN_GRAPHS = 8
+TRAIN_MIN_VERTICES = 1_000_000
 
 
 def fail(msg):
@@ -181,6 +200,171 @@ def phase_forward(torch, g, dg, rng):
           f"({nnz / plain_ms * 1e3:.6g} edges/s)")
 
 
+def phase_backward(torch, dg, rng, seed):
+    import numpy as np
+
+    import gnn_mwvc_tpu_torch.models.gnn as gnn_mod
+    from gnn_mwvc_tpu_torch.models import (MWVCModel, build_reference_arch,
+                                           init_params)
+    from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate,
+                                                  csr_aggregate_plain)
+    from gnn_mwvc_tpu_torch.train import TrainSample, loss_and_metrics
+    from gnn_mwvc_tpu_torch.train.trainer import WEIGHT_SCALE
+
+    n = dg.n
+    nnz = dg.indices.numel()
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    # K1's backward alone
+    x = randn(n, 16).requires_grad_()
+    g = randn(n, 16)
+    mask = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).cuda()
+    err = 0.0
+    for what, m in (("masked", mask), ("unmasked", None)):
+        out_k = csr_aggregate(x, dg.indptr, dg.indices, m)
+        out_p = csr_aggregate_plain(x, dg.indptr, dg.indices, m)
+        (b1,) = torch.autograd.grad(out_k, x, g, retain_graph=True)
+        (b2,) = torch.autograd.grad(out_k, x, g, retain_graph=True)
+        (ref,) = torch.autograd.grad(out_p, x, g, retain_graph=True)
+        torch.cuda.synchronize()
+        if not torch.equal(b1, b2):
+            fail(f"K1 backward {what}: two runs on the same input differ")
+        # index_add_'s backward sums in another order (and with atomics)
+        if not torch.allclose(b1, ref, rtol=1e-5, atol=1e-5):
+            fail(f"K1 backward {what}: max |diff| {float((b1 - ref).abs().max())}")
+        err = max(err, float((b1 - ref).abs().max()))
+    # the training path's backward is unmasked
+    ms = cuda_ms(lambda: torch.autograd.grad(out_k, x, g, retain_graph=True), 20)
+    plain_ms = cuda_ms(
+        lambda: torch.autograd.grad(out_p, x, g, retain_graph=True), 5)
+    del x, g, out_k, out_p, b1, b2, ref
+    print(f"K1 backward n={n} nnz={nnz} w=16: within 1e-5 of the plain "
+          f"autograd (max |diff| {err:.3g}), bitwise repeatable; kernel "
+          f"{ms:.4f} ms ({nnz / ms * 1e3:.6g} edges/s), plain {plain_ms:.4f} ms "
+          f"({nnz / plain_ms * 1e3:.6g} edges/s)")
+
+    # the full model's SSE gradients, through K1 and through the plain sum
+    model = init_params(MWVCModel(*build_reference_arch()), seed=seed).cuda()
+    y = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)).cuda()
+    sample = TrainSample(dg=dg, y=y, n=n,
+                         mask=torch.ones(n, dtype=torch.bool, device="cuda"))
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        sse, _ = loss_and_metrics(model, sample, WEIGHT_SCALE)
+        sse.backward()
+        return [p.grad for p in model.parameters()]
+
+    g_kernel = grads()
+    step_ms = cuda_ms(grads, 5)
+    kernel_aggregate = gnn_mod.csr_aggregate
+    gnn_mod.csr_aggregate = csr_aggregate_plain  # the same model, plain K1
+    try:
+        g_plain = grads()
+        plain_step_ms = cuda_ms(grads, 3)
+    finally:
+        gnn_mod.csr_aggregate = kernel_aggregate
+    worst = 0.0
+    for (name, _p), gk, gp in zip(model.named_parameters(), g_kernel, g_plain):
+        if not (bool(torch.isfinite(gk).all()) and float(gp.abs().max()) > 0):
+            fail(f"SSE gradient {name}: non-finite or all zero")
+        rel = float((gk - gp).abs().max() / gp.abs().max())
+        if rel > 1e-4:
+            fail(f"SSE gradient {name}: K1 vs plain differ by {rel:.3g} "
+                 "of the largest entry")
+        worst = max(worst, rel)
+    print(f"SSE gradient n={n} nnz={nnz}, {len(g_kernel)} tensors: K1 within "
+          f"{worst:.3g} of the largest entry of the plain-aggregation "
+          f"gradients (limit 1e-4); forward + backward {step_ms:.4f} ms "
+          f"({nnz / step_ms * 1e3:.6g} edges/s), plain aggregation "
+          f"{plain_step_ms:.4f} ms ({nnz / plain_step_ms * 1e3:.6g} edges/s)")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+
+def phase_train(torch, seed):
+    import math
+    import tempfile
+
+    from gnn_mwvc_tpu_torch.graph import build_road_graph
+    from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc_tpu_torch.models import (MWVCModel, build_reference_arch,
+                                           init_params, load_model, save_model)
+    from gnn_mwvc_tpu_torch.ops import _build
+    from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.train import (TrainConfig, gen_reduced_graph,
+                                          make_sample, train)
+
+    t0 = time.perf_counter()
+    samples = []
+    for i in range(TRAIN_GRAPHS):
+        g = build_road_graph(TRAIN_SIDE, seed=seed + 100 + i)
+        kernel, _cost, _ids = gen_reduced_graph(g)
+        labels = solve(kernel, time_limit=0, device="cuda").solution
+        samples.append(make_sample(kernel, labels, f"road{TRAIN_SIDE}_{i}",
+                                   device="cuda"))
+    prep_s = time.perf_counter() - t0
+    vertices = sum(s.n for s in samples)
+    if vertices < TRAIN_MIN_VERTICES:
+        fail(f"train: {vertices} kernel vertices, under {TRAIN_MIN_VERTICES}")
+    frac = sum(float(s.y.sum()) for s in samples) / vertices
+    print(f"train data: {TRAIN_GRAPHS} x road{TRAIN_SIDE} kernels, "
+          f"{vertices} vertices, {frac:.4f} labelled in the cover; "
+          f"prep {prep_s:.3f} s")
+
+    cfg = TrainConfig(epochs=2, seed=seed, log=True)
+    start = init_params(MWVCModel(*build_reference_arch()), seed=cfg.seed)
+    start_params = [p.detach().clone() for p in start.parameters()]
+    _build.launches.clear()
+    model, hist = train(samples, cfg, model=start, device="cuda")
+    launches = dict(_build.launches)
+
+    n_train = int(len(samples) * 0.9)
+    losses = [(h["train"]["loss"], h["test"]["loss"]) for h in hist]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail(f"train: non-finite losses {losses}")
+    moved = max(float((p.detach().cpu() - q).abs().max())
+                for p, q in zip(model.parameters(), start_params))
+    if moved == 0:
+        fail("train: the parameters did not move")
+    back = launches.get("csr_aggregate_backward", 0)
+    if back < 2 * n_train:
+        fail(f"train: K1 backward launched {back} times for {n_train} "
+             "training graphs")
+    if min(h["steps"] for h in hist) < 2:
+        fail(f"train: SGD steps per pass {[h['steps'] for h in hist]}, want >= 2")
+    steps = sum(h["steps"] for h in hist)
+    seconds = sum(h["train_seconds"] for h in hist)
+    train_vertices = hist[0]["train"]["total"] * len(hist)
+    print(f"train: {len(hist)} passes, {steps} SGD steps, {n_train} training "
+          f"graphs ({hist[0]['train']['total']} vertices); "
+          f"{seconds / steps * 1e3:.4f} ms per SGD step, "
+          f"{train_vertices / seconds:.6g} vertices/s (gradient passes, host "
+          f"clock; per pass {[round(h['train_seconds'], 4) for h in hist]} s); "
+          f"losses (train, test) per pass {losses}; moved "
+          f"{moved:.3g}; launches {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        save_model(path, model)
+        reloaded = MWVCModel.from_spec(load_model(path), device="cuda")
+    for p, q in zip(model.parameters(), reloaded.parameters()):
+        # the text format keeps 6 significant digits
+        if not torch.allclose(p, q, rtol=1e-5, atol=1e-6):
+            fail("train: the saved model does not reload to its parameters")
+    g = build_road_graph(60, seed=seed)
+    res = solve(g, model=reloaded, time_limit=2.0, device="cuda")
+    if not is_vertex_cover(g, res.solution):
+        fail("train: solve() with the trained model is not a vertex cover")
+    if cover_cost(g, res.solution) != res.cost:
+        fail("train: solve() with the trained model: cost does not match")
+    print(f"trained model: saved, reloaded, solve() on road60 a valid cover "
+          f"of cost {res.cost}")
+    return launches
+
+
 def phase_solve(torch, g, time_limit):
     import io
 
@@ -275,11 +459,16 @@ def main():
           f"built in {time.perf_counter() - t0:.3f} s")
     k1 = phase_k1(torch, dg, rng)
     phase_forward(torch, g, dg, rng)
+    k1_back = phase_backward(torch, dg, rng, args.seed)
     del dg
     torch.cuda.empty_cache()
 
     # 6. solve
     launches = phase_solve(torch, g, args.time)
+    del g
+
+    # 7. train
+    train_launches = phase_train(torch, args.seed)
 
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",
@@ -288,6 +477,12 @@ def main():
          "launches": launches.get("csr_aggregate", 0),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"]},
+        {"name": "csr_aggregate_backward", "route": "cuda",
+         "source": "gnn_mwvc_tpu_torch/csrc/csr_aggregate.cu",
+         "replaces": "gnn_mwvc_tpu/train/trainer.py:66",
+         "launches": train_launches.get("csr_aggregate_backward", 0),
+         "max_abs_err": k1_back["max_abs_err"], "ms": k1_back["ms"],
+         "plain_ms": k1_back["plain_ms"]},
         {"name": "small_mwvc_mitm", "route": "cuda",
          "source": "gnn_mwvc_tpu_torch/csrc/smallsolve_mitm.cu",
          "replaces": "gnn_mwvc_tpu/ops/smallsolve_pallas.py:154",

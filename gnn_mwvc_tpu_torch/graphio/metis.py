@@ -35,15 +35,17 @@ def _tokenize(body: bytes):
     return values, line_of_tok
 
 
-def read_metis(path_or_buf) -> Graph:
+def _read_bytes(path_or_buf) -> bytes:
+    """The whole content of a path or of an open (text or binary) file."""
     if hasattr(path_or_buf, "read"):
         data = path_or_buf.read()
-        if isinstance(data, str):
-            data = data.encode()
-    else:
-        with open(path_or_buf, "rb") as f:
-            data = f.read()
+        return data.encode() if isinstance(data, str) else data
+    with open(path_or_buf, "rb") as f:
+        return f.read()
 
+
+def read_metis(path_or_buf) -> Graph:
+    data = _read_bytes(path_or_buf)
     header_end = data.find(b"\n")
     n = int(data[:header_end].split()[0])
     body = data[header_end + 1:]

@@ -1,10 +1,18 @@
-from gnn_mwvc_tpu_torch.models.gnn import MWVCModel, score_graph  # noqa: F401
+from gnn_mwvc_tpu_torch.models.gnn import (  # noqa: F401
+    MWVCModel,
+    build_reference_arch,
+    init_params,
+    score_graph,
+)
 from gnn_mwvc_tpu_torch.models.serialize import (  # noqa: F401
     ModelSpec,
+    dumps_model,
     load_model,
     load_pretrained,
     loads_model,
     params_from_jax,
+    params_to_jax,
+    save_model,
 )
 
 

@@ -11,6 +11,11 @@ w = 1 that is the documented layout, for w = 16 it overwrites copied input
 columns 1..3 and leaves the last three columns zero.  The trained weights
 bake this in; do not "fix" it.
 
+The forward is differentiable end to end (the neighbour sums through K1's
+``autograd.Function``; the compat overwrite gives the overwritten input
+columns zero gradient, as ``dynamic_update_slice`` does under ``jax.grad``),
+which is what ``train/`` trains.
+
 The linear layers are ``nn.Linear`` in float32.  The JAX reference runs its
 dots at ``Precision.HIGHEST`` (full fp32), so TF32 is switched off for both
 matmuls and cuDNN here, at import.
@@ -25,7 +30,8 @@ from gnn_mwvc_tpu_torch.graph import DeviceGraph
 from gnn_mwvc_tpu_torch.models.serialize import ModelSpec, params_from_jax
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate
 
-__all__ = ["MWVCModel", "graph_layer", "score_graph"]
+__all__ = ["MWVCModel", "build_reference_arch", "graph_layer", "init_params",
+           "score_graph"]
 
 # fp32 parity with the JAX reference (Precision.HIGHEST): no TF32 anywhere
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,3 +118,39 @@ def score_graph(model: MWVCModel, dg: DeviceGraph, weight_scale: float,
     x = (dg.weights / weight_scale).reshape(-1, 1)
     return model(x, dg, weight_scale, compat=compat,
                  x_is_node_weights=True)[:, 0]
+
+
+def build_reference_arch() -> tuple:
+    """The 21-layer SEA-2022 architecture as ``(kinds, dims)``, the JAX
+    package's ``build_reference_arch``:
+
+    Graph -> Lin(5,32) -> ReLU -> Lin(32,32) -> ReLU -> Lin(32,16) -> ReLU ->
+    Graph -> Lin(35,32) -> ReLU -> Lin(32,32) -> ReLU -> Lin(32,16) -> ReLU ->
+    Graph -> Lin(35,32) -> ReLU -> Lin(32,16) -> ReLU -> Lin(16,1) -> Sigmoid
+    """
+    block = ["graph", "linear", "relu", "linear", "relu", "linear"]
+    kinds = tuple(block + ["relu"] + block + ["relu"] + block + ["sigmoid"])
+    dims = [(5, 32), (32, 32), (32, 16),
+            (35, 32), (32, 32), (32, 16),
+            (35, 32), (32, 16), (16, 1)]
+    return kinds, dims
+
+
+@torch.no_grad()
+def init_params(model: MWVCModel, seed: int = 0) -> MWVCModel:
+    """U(-lim, lim) init in place, lim = 1/sqrt(dim_in + 1), linear layer i
+    drawn from its own ``torch.Generator`` seeded ``seed + i`` (weight, then
+    bias), on the CPU so every device gets the same values.
+
+    The law is the JAX ``init_params``'s, the numbers are not: torch's
+    generator cannot reproduce ``jax.random``'s bits.  To start both
+    packages from the same point, carry JAX parameters across with
+    ``params_from_jax``.
+    """
+    for i, lin in enumerate(model.linears):
+        gen = torch.Generator().manual_seed(seed + i)
+        lim = 1.0 / (lin.in_features + 1) ** 0.5
+        for p in (lin.weight, lin.bias):
+            u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
+            p.copy_(u * (2 * lim) - lim)
+    return model

@@ -1,5 +1,6 @@
-"""The reference text model format, read into numpy, and the conversion of
-JAX-layout parameters to a ``MWVCModel`` state dict.
+"""The reference text model format, read into numpy and written from a
+``MWVCModel``, and the conversion between JAX-layout parameters and a
+``MWVCModel``'s.
 
 Text format (the reference's ``operator>>``; token based, so any whitespace
 layout parses)::
@@ -29,20 +30,22 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["ModelSpec", "loads_model", "load_model", "load_pretrained",
-           "params_from_jax", "PRETRAINED_PATH"]
+__all__ = ["ModelSpec", "dumps_model", "loads_model", "load_model",
+           "load_pretrained", "params_from_jax", "params_to_jax", "save_model",
+           "PRETRAINED_PATH"]
 
 PRETRAINED_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "gnn_mwvc_tpu", "models", "weights", "gnn_vc_sea2022.txt",
 )
 
-_TOKEN_TO_KIND = {
-    "Linear_Layer": "linear",
-    "Graph_Layer": "graph",
-    "ReLU_Activation": "relu",
-    "Sigmoid_Activation": "sigmoid",
+_KIND_TO_TOKEN = {
+    "linear": "Linear_Layer",
+    "graph": "Graph_Layer",
+    "relu": "ReLU_Activation",
+    "sigmoid": "Sigmoid_Activation",
 }
+_TOKEN_TO_KIND = {v: k for k, v in _KIND_TO_TOKEN.items()}
 
 
 @dataclasses.dataclass
@@ -93,6 +96,29 @@ def loads_model(text: str) -> ModelSpec:
     return ModelSpec(kinds=tuple(kinds), params=params, name=name)
 
 
+def dumps_model(model) -> str:
+    """A ``MWVCModel`` in the reference text format, byte for byte what the
+    JAX package's ``dumps_model`` writes for the same parameters (``%g``
+    floats, a blank line after each layer), so both packages load it."""
+    out = [model.name, f"{len(model.kinds)} Layers"]
+    for kind, p in zip(model.kinds, params_to_jax(model)):
+        out.append(_KIND_TO_TOKEN[kind])
+        if kind == "linear":
+            w, b = p["w"], p["b"]
+            out.append(f"Weights: {w.shape[0]} {w.shape[1]}")
+            for row in w:
+                out.append(" ".join(f"{v:g}" for v in row) + " ")
+            out.append(f"Bias: 1 {b.shape[0]}")
+            out.append(" ".join(f"{v:g}" for v in b) + " ")
+        out.append("")
+    return "\n".join(out) + "\n"
+
+
+def save_model(path, model) -> None:
+    with open(path, "w") as f:
+        f.write(dumps_model(model))
+
+
 def load_model(path) -> ModelSpec:
     with open(path) as f:
         return loads_model(f.read())
@@ -119,3 +145,19 @@ def params_from_jax(kinds, params) -> dict:
             np.asarray(p["b"], np.float32).copy())
         i += 1
     return sd
+
+
+def params_to_jax(model) -> list:
+    """The inverse of ``params_from_jax``: one entry per layer of ``model``,
+    ``{"w": (in, out), "b": (out,)}`` float32 numpy for a linear layer and
+    None otherwise."""
+    linears = iter(model.linears)
+    params = []
+    for kind in model.kinds:
+        if kind != "linear":
+            params.append(None)
+            continue
+        lin = next(linears)
+        params.append({"w": lin.weight.detach().cpu().numpy().T.copy(),
+                       "b": lin.bias.detach().cpu().numpy().copy()})
+    return params

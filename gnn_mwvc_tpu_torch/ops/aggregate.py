@@ -1,4 +1,4 @@
-"""Masked CSR neighbour sum: kernel K1 and its plain PyTorch version.
+"""Masked CSR neighbour sum: kernel K1, its gradient and its plain version.
 
     agg[u, :] = sum over v in N(u) of x[v, :] * mask[v]
 
@@ -7,11 +7,19 @@ package's ELL and windowed-MXU aggregation plans (``ops/aggregate.py``,
 ``ops/blocked.py``), which exist because scatter is slow on a TPU.  On CUDA
 tensors the wrapper launches the hand-written kernel
 (``csrc/csr_aggregate.cu``); on CPU tensors it runs the plain version.
+
+``csr_aggregate`` is differentiable in ``x`` on every device.  The CSR is
+symmetric (``Graph`` stores both directions of every edge), so A is its own
+transpose and the backward of ``agg = A (m * x)`` is
+``grad_x = m * (A grad_agg)``: K1 again, on the gradient, with no source
+mask.  That replaces the transpose ``jax.grad`` derives for the JAX
+aggregation (``train/trainer.py:66``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gnn_mwvc_tpu_torch.ops import _build
 
@@ -56,14 +64,9 @@ def _check_inputs(x, indptr, indices, mask):
         raise ValueError("inputs must be contiguous")
 
 
-def csr_aggregate(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked neighbour sum over a symmetric int32 CSR; (n, w) float32 out.
-
-    CUDA tensors go through kernel K1 (deterministic: no atomics, each row
-    summed in CSR order); CPU tensors through ``csr_aggregate_plain``.
-    """
-    _check_inputs(x, indptr, indices, mask)
+def _aggregate(x, indptr, indices, mask, counter):
+    """One neighbour sum: the plain version on the CPU, K1 on CUDA (counted
+    under ``counter``)."""
     if x.device.type == "cpu":
         return csr_aggregate_plain(x, indptr, indices, mask)
     if x.device.type != "cuda":
@@ -78,6 +81,39 @@ def csr_aggregate(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
             mask.data_ptr() if mask is not None else None,
             _MASK_KINDS[mask.dtype] if mask is not None else 0,
             out.data_ptr(), n, w, stream)
-    _build.check(err, "csr_aggregate")
-    _build.launches["csr_aggregate"] += 1
+    _build.check(err, counter)
+    _build.launches[counter] += 1
     return out
+
+
+class _CsrAggregate(torch.autograd.Function):
+    """K1 with its gradient in ``x``; the mask is a constant."""
+
+    @staticmethod
+    def forward(ctx, x, indptr, indices, mask):
+        ctx.save_for_backward(indptr, indices, mask)
+        return _aggregate(x, indptr, indices, mask, "csr_aggregate")
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        indptr, indices, mask = ctx.saved_tensors
+        grad_x = _aggregate(grad_out.contiguous(), indptr, indices, None,
+                            "csr_aggregate_backward")
+        if mask is not None:
+            grad_x = grad_x * mask.to(grad_x.dtype)[:, None]
+        return grad_x, None, None, None
+
+
+def csr_aggregate(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked neighbour sum over a symmetric int32 CSR; (n, w) float32 out.
+
+    CUDA tensors go through kernel K1 (deterministic: no atomics, each row
+    summed in CSR order); CPU tensors through ``csr_aggregate_plain``.  The
+    result is differentiable in ``x``: the backward is the same neighbour
+    sum of the gradient (K1 on CUDA, counted as ``csr_aggregate_backward``),
+    which is right only because the CSR is symmetric.
+    """
+    _check_inputs(x, indptr, indices, mask)
+    return _CsrAggregate.apply(x, indptr, indices, mask)

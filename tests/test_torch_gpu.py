@@ -12,11 +12,14 @@ import torch
 
 from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph, build_road_graph
 from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover, read_metis
+from gnn_mwvc_tpu_torch.models import (MWVCModel, build_reference_arch,
+                                       init_params)
 from gnn_mwvc_tpu_torch.ops import _build
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_aggregate_plain
 from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import (small_mwvc_mitm,
                                                     small_mwvc_mitm_plain)
 from gnn_mwvc_tpu_torch.solver.pipeline import solve
+from gnn_mwvc_tpu_torch.train import TrainConfig, make_sample, train
 
 pytestmark = pytest.mark.gpu
 
@@ -51,6 +54,55 @@ def test_k1_matches_plain_and_repeats(cuda, masked):
     assert torch.equal(a, b)
     ref = csr_aggregate_plain(x, dg.indptr, dg.indices, mask)
     torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_backward_matches_plain_autograd_and_repeats(cuda, masked):
+    rng = np.random.default_rng(3)
+    dg = DeviceGraph.from_graph(build_road_graph(100), cuda)
+    x = torch.from_numpy(rng.standard_normal((dg.n, 16)).astype(np.float32)
+                         ).to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((dg.n, 16)).astype(np.float32)).to(cuda)
+    mask = (torch.from_numpy((rng.random(dg.n) < 0.7).astype(np.float32)).to(cuda)
+            if masked else None)
+    before = _build.launches["csr_aggregate_backward"]
+    out = csr_aggregate(x, dg.indptr, dg.indices, mask)
+    (a,) = torch.autograd.grad(out, x, g, retain_graph=True)
+    (b,) = torch.autograd.grad(out, x, g)
+    assert _build.launches["csr_aggregate_backward"] == before + 2
+    assert torch.equal(a, b)
+    (ref,) = torch.autograd.grad(
+        csr_aggregate_plain(x, dg.indptr, dg.indices, mask), x, g)
+    # index_add_'s backward sums in another order, with atomics
+    torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One pass with one SGD step (batch_vertices 600 over three
+    500-vertex training graphs) from the same parameters on both devices:
+    parameters within 1e-5 of each tensor's largest entry, losses 1e-5
+    relative (fp32 sums in other orders)."""
+    rng = np.random.default_rng(4)
+    graphs = [_random_graph(500, 8, seed=10 + i) for i in range(4)]
+    labels = [(rng.random(g.n) < 0.5).astype(np.float32) for g in graphs]
+    cfg = TrainConfig(epochs=0, batch_vertices=600, seed=1, log=False)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        samples = [make_sample(g, y, device=dev) for g, y in zip(graphs, labels)]
+        start = init_params(MWVCModel(*build_reference_arch()), seed=7)
+        before = _build.launches["csr_aggregate_backward"]
+        model, hist = train(samples, cfg, model=start, device=dev)
+        runs[dev.type] = (model, hist,
+                          _build.launches["csr_aggregate_backward"] - before)
+    (cm, ch, c_launch), (gm, gh, g_launch) = runs["cpu"], runs["cuda"]
+    assert c_launch == 0 and g_launch >= 2 * 3
+    assert ch[0]["steps"] == gh[0]["steps"] == 1
+    for split in ("train", "test"):
+        np.testing.assert_allclose(gh[0][split]["loss"], ch[0][split]["loss"],
+                                   rtol=1e-5)
+    for p, q in zip(gm.parameters(), cm.parameters()):
+        p, q = p.detach().cpu(), q.detach()
+        assert float((p - q).abs().max()) <= 1e-5 * float(q.abs().max())
 
 
 @pytest.mark.parametrize("n", [16, 20])

@@ -84,6 +84,7 @@ def test_port_imports_no_jax():
     code = (
         "import io, sys\n"
         "import gnn_mwvc_tpu_torch.solver.cli, gnn_mwvc_tpu_torch.solver.pipeline\n"
+        "import gnn_mwvc_tpu_torch.train, gnn_mwvc_tpu_torch.train.cli\n"
         "from gnn_mwvc_tpu_torch.graphio import read_metis\n"
         "from gnn_mwvc_tpu_torch.solver.pipeline import solve\n"
         f"g = read_metis(io.BytesIO({EX3!r}))\n"
