@@ -9,11 +9,13 @@ per-instance total below 2^30, n in {16, 20}.  Returns ``best_cost (B,)``
 int32 and ``best_set (B,)`` int32: the smallest cover bitmask among the
 minimum-cost covers, AND-ed with the used-vertex mask.
 
-A subset is a cover iff its complement is an independent set; complements
-are enumerated as 7 low bits x (n - 7) high bits from per-instance tables.
-CUDA tensors go through the hand-written kernel (``csrc/smallsolve_mitm.cu``,
-one block per instance); CPU tensors through the plain version, which
-evaluates the same tables in chunks of high patterns.
+A subset is a cover iff its complement is an independent set.  CPU tensors
+go through the plain version, the oracle: it enumerates the complements as
+7 low bits x (n - 7) high bits from per-instance tables, in chunks of high
+patterns.  CUDA tensors go through the hand-written kernel
+(``csrc/smallsolve_mitm.cu``, one block per instance), which gets the same
+minimum without the pair enumeration: a subset-maximum transform over the
+high half's table, then one lookup per low pattern.
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ class TrainSample:
 
 
 def make_sample(g: Graph, labels: np.ndarray, name: str = "",
-                device="cpu") -> TrainSample:
+                device="cuda") -> TrainSample:
     labels = np.asarray(labels, np.float32)
     if labels.shape != (g.n,):
         raise ValueError(f"{name}: {labels.shape} labels for {g.n} vertices")
@@ -49,7 +49,7 @@ def make_sample(g: Graph, labels: np.ndarray, name: str = "",
 
 
 def load_training_set(graph_dir, label_dir, min_class_frac=0.2,
-                      graph_suffix=".mtx", device="cpu"):
+                      graph_suffix=".mtx", device="cuda"):
     """Pair each label file with its graph; drop class-imbalanced graphs."""
     samples = []
     for entry in sorted(os.listdir(label_dir)):

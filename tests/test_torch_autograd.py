@@ -86,7 +86,7 @@ def test_sse_gradient_matches_jax_grad(name, compat):
     ref = grad_fn(params, dgj, y, dgj.node_mask, np.float32(WEIGHT_SCALE))
 
     model = MWVCModel.from_spec(ModelSpec(kinds, params))
-    s = make_sample(Graph(gj.weights, gj.edge_array()), labels)
+    s = make_sample(Graph(gj.weights, gj.edge_array()), labels, device="cpu")
     sse, _ = loss_and_metrics(model, s, WEIGHT_SCALE, compat)
     sse.backward()
     lins = iter(model.linears)

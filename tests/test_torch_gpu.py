@@ -105,22 +105,103 @@ def test_train_step_on_cuda_matches_cpu(cuda):
         assert float((p - q).abs().max()) <= 1e-5 * float(q.abs().max())
 
 
+def _k4_batch(rng, b, n):
+    """Random regions with padding, unit weights (tie-heavy) and forced
+    vertices, plus all-padding rows, full n-vertex cliques and rows of
+    random asymmetric bits (the reference reads only some of them)."""
+    adj = np.zeros((b, n), np.int32)
+    w = np.zeros((b, n), np.int32)
+    for i in range(b):
+        kind = i % 6
+        if kind == 0:
+            continue                                    # all padding
+        k = n if kind == 1 else int(rng.integers(1, n + 1))
+        w[i, :k] = 1 if kind in (1, 2) else rng.integers(1, 1000, size=k)
+        if kind == 1:                                   # clique
+            adj[i, :k] = ((1 << k) - 1) ^ (1 << np.arange(k))
+        elif kind == 5:                                 # asymmetric bits
+            adj[i] = rng.integers(0, 2**31, size=n)
+        else:
+            for _ in range(2 * k):
+                a, c = rng.integers(0, k, size=2)       # a == c: forced
+                adj[i, a] |= 1 << c
+                adj[i, c] |= 1 << a
+    return adj, w
+
+
+@pytest.mark.parametrize("b", [1, 7, 1024, 1500])
 @pytest.mark.parametrize("n", [16, 20])
-def test_k4_bitwise_equals_plain(cuda, n):
-    rng = np.random.default_rng(n)
-    adj = np.zeros((256, n), np.int32)
-    w = np.zeros((256, n), np.int32)
-    for i in range(256):
-        k = int(rng.integers(1, n + 1))
-        w[i, :k] = 1 if i % 3 == 0 else rng.integers(1, 1000, size=k)
-        for _ in range(2 * k):
-            a, b = rng.integers(0, k, size=2)  # a == b: forced vertex
-            adj[i, a] |= 1 << b
-            adj[i, b] |= 1 << a
+def test_k4_bitwise_equals_plain(cuda, n, b):
+    adj, w = _k4_batch(np.random.default_rng(n * 10_000 + b), b, n)
     d_adj, d_w = torch.from_numpy(adj).to(cuda), torch.from_numpy(w).to(cuda)
+    before = _build.launches["small_mwvc_mitm"]
     c1, s1 = small_mwvc_mitm(d_adj, d_w)
+    assert _build.launches["small_mwvc_mitm"] == before + 1
     c0, s0 = small_mwvc_mitm_plain(d_adj, d_w)
     assert torch.equal(c0, c1) and torch.equal(s0, s1)
+
+
+def _hub_graph():
+    """A random graph with one isolated vertex (row of degree 0) and one
+    hub of degree 150."""
+    g = _random_graph(2000, 8, seed=5)
+    hub = np.stack([np.zeros(150, np.int64), np.arange(10, 160)], 1)
+    keep = (g.edge_array() != 1).all(1)                 # vertex 1 isolated
+    edges = np.unique(np.concatenate([g.edge_array()[keep], hub]), axis=0)
+    return Graph(g.weights, edges)
+
+
+def _cpu_plain(x, dg, mask):
+    return csr_aggregate_plain(x.cpu(), dg.indptr.cpu(), dg.indices.cpu(),
+                               None if mask is None else mask.cpu())
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "f32", "u8"])
+@pytest.mark.parametrize("w", [1, 3, 16, 35, 64])
+def test_k1_bitwise_equals_cpu_plain(cuda, w, mask_kind):
+    rng = np.random.default_rng(w)
+    dg = DeviceGraph.from_graph(_hub_graph(), cuda)
+    deg = (dg.indptr[1:] - dg.indptr[:-1]).cpu()
+    assert int(deg.min()) == 0 and int(deg.max()) >= 100
+    x = torch.from_numpy(rng.standard_normal((dg.n, w)).astype(np.float32)).to(cuda)
+    alive = rng.random(dg.n) < 0.7
+    mask = {"none": None,
+            "f32": torch.from_numpy(alive.astype(np.float32)).to(cuda),
+            "u8": torch.from_numpy(alive.astype(np.uint8)).to(cuda)}[mask_kind]
+    got = csr_aggregate(x, dg.indptr, dg.indices, mask)
+    assert torch.equal(got.cpu(), _cpu_plain(x, dg, mask))
+
+
+def test_k1_unaligned_x_takes_the_scalar_path(cuda):
+    """A contiguous x at a 4-byte storage offset: a float4 load from it
+    would fault, so a bitwise-right result means the scalar path ran."""
+    rng = np.random.default_rng(2)
+    dg = DeviceGraph.from_graph(_hub_graph(), cuda)
+    flat = torch.from_numpy(rng.standard_normal(dg.n * 16 + 1).astype(np.float32))
+    x = flat.to(cuda)[1:].view(dg.n, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    mask = torch.from_numpy((rng.random(dg.n) < 0.7).astype(np.float32)).to(cuda)
+    got = csr_aggregate(x, dg.indptr, dg.indices, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _cpu_plain(x, dg, mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_backward_bitwise_equals_cpu_autograd(cuda, masked):
+    rng = np.random.default_rng(6)
+    dg = DeviceGraph.from_graph(_hub_graph(), cuda)
+    x = torch.from_numpy(rng.standard_normal((dg.n, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((dg.n, 16)).astype(np.float32))
+    mask = (torch.from_numpy((rng.random(dg.n) < 0.7).astype(np.float32))
+            if masked else None)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        out = csr_aggregate(xd, dg.indptr.to(dev), dg.indices.to(dev),
+                            None if mask is None else mask.to(dev))
+        (gx,) = torch.autograd.grad(out, xd, g.to(dev))
+        grads.append(gx.cpu())
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_solve_on_cuda_uses_both_kernels(cuda):

@@ -82,7 +82,7 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 def test_port_imports_no_jax():
     code = (
-        "import io, sys\n"
+        "import io, os, sys\n"
         "import gnn_mwvc_tpu_torch.solver.cli, gnn_mwvc_tpu_torch.solver.pipeline\n"
         "import gnn_mwvc_tpu_torch.train, gnn_mwvc_tpu_torch.train.cli\n"
         "from gnn_mwvc_tpu_torch.graphio import read_metis\n"
@@ -92,6 +92,11 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.')]\n"
+        "# a file of the JAX package executed under any module name\n"
+        f"pkg = {os.path.join(os.path.realpath(REPO), 'gnn_mwvc_tpu')!r} + os.sep\n"
+        "bad += [m for m, mod in list(sys.modules.items())\n"
+        "        if os.path.realpath(getattr(mod, '__file__', None) or '')\n"
+        "        .startswith(pkg)]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -63,7 +63,8 @@ def test_train_trajectory_matches_jax():
     jm, jhist = jax_train([jax_make_sample(g, y) for g, y in zip(graphs, labels)],
                           JaxTrainConfig(**cfg),
                           model=JaxModel(kinds=kinds, params=params))
-    tm, thist = train([make_sample(_port(g), y) for g, y in zip(graphs, labels)],
+    tm, thist = train([make_sample(_port(g), y, device="cpu")
+                       for g, y in zip(graphs, labels)],
                       TrainConfig(**cfg),
                       model=MWVCModel.from_spec(ModelSpec(kinds, params)),
                       device="cpu")
@@ -159,7 +160,7 @@ def test_load_training_set_filters_like_jax(tmp_path):
         y = (np.random.default_rng(i).random(g.n) < frac).astype(int)
         np.savetxt(str(ld / f"g{i}.txt"), y, fmt="%d")
     np.savetxt(str(ld / "orphan.txt"), np.ones(5), fmt="%d")
-    got = load_training_set(str(gd), str(ld))
+    got = load_training_set(str(gd), str(ld), device="cpu")
     want = jax_load_training_set(str(gd), str(ld))
     assert [s.name for s in got] == [s.name for s in want] == ["g0", "g3"]
     for s, sj in zip(got, want):
@@ -169,7 +170,8 @@ def test_load_training_set_filters_like_jax(tmp_path):
 
 def test_train_on_cuda_without_a_gpu_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    s = make_sample(_port(random_graph(30, 4, seed=1)), np.ones(30))
+    s = make_sample(_port(random_graph(30, 4, seed=1)), np.ones(30),
+                    device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train([s], TrainConfig(epochs=0, log=False), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -178,9 +180,11 @@ def test_train_on_cuda_without_a_gpu_raises(monkeypatch, tmp_path):
 
 
 def test_train_rejects_samples_on_another_device():
-    s = make_sample(_port(random_graph(30, 4, seed=1)), np.ones(30))
+    s = make_sample(_port(random_graph(30, 4, seed=1)), np.ones(30),
+                    device="cpu")
     with pytest.raises(ValueError, match="labels for"):
-        make_sample(_port(random_graph(30, 4, seed=1)), np.ones(29))
+        make_sample(_port(random_graph(30, 4, seed=1)), np.ones(29),
+                    device="cpu")
     with pytest.raises(ValueError, match="training on meta"):
         train([s], TrainConfig(epochs=0, log=False), device="meta")
 
