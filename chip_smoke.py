@@ -10,7 +10,9 @@ non-zero:
   2. build   - nvcc builds the kernels from gnn_mwvc_tpu_torch/csrc/
   3. K4      - region solver vs its plain version on the card, synthetic
                batches of B = 1, 7, 1024, 1500 at n = 16 and n = 20: bitwise
-               equal; ms per eager call and on the device alone, regions/s
+               equal; ms per eager call and on the device alone, regions/s;
+               at n = 16, B = 1024 also bitwise equal to the 2^16-subset
+               enumeration (ops/smallsolve.py) on the card
   4. K1      - CSR neighbour sum on the 1.44M-node road-like graph, masked
                (f32, u8) and unmasked: bitwise equal to the plain version run
                on CPU copies, within 1e-5 of it on the card, bitwise
@@ -39,8 +41,26 @@ non-zero:
                K1's backward launched for every training graph, and the
                saved model reloads and drives a valid solve(); ms per SGD
                step, vertices/s, per-epoch losses
-Then one JSON line of per-kernel numbers, and as the last line
-{"ok": true, "device": {...}}.
+  8. prepass - the device rule prepass on the road-like graph: rule_masks and
+               r5_candidates of the first snapshot on the card bitwise equal
+               to the same ops on CPU copies (ms on each); then
+               device_reduce_prepass(device="cuda") and the host reduce,
+               beside a host-only reduce of a fresh core (kernel sizes,
+               seconds); the masks' device checked; the prepassed core peeled
+               with the sticky scorer on the card and unfolded to a valid
+               cover
+  9. surfaces - on a road-like (side 300) and a random instance written as
+               METIS files, each as a subprocess on the card: gnn-vc-torch
+               --quick, mwvc-batch-torch --json over both, solve() with a
+               checkpoint then resume_solve() in a new process, mwvc-bench-
+               torch on the road-like instance (our, approximation and
+               baseline rows) and mwvc-tools-torch vc-validate; any non-zero
+               exit fails, and so does a process that scores with the GNN
+               without launching K1, or runs a phase 2 without launching K4
+               (each prints its own launch counts)
+Then one JSON line of per-kernel numbers, one of the plain-torch device ops
+(``device_ops``: the rule masks, r5 and the 2^16 enumeration, which are not
+hand kernels), and as the last line {"ok": true, "device": {...}}.
 
 Timing: ``ms``, ``plain_ms`` and ``library_ms`` are eager calls between two
 CUDA events, as a caller that launches call by call pays them (the method of
@@ -66,6 +86,9 @@ TRAIN_GRAPHS = 8
 TRAIN_MIN_VERTICES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 64 INT32 lanes a clock
+SURFACE_SIDE = 300          # phase 9's road-like instance (90,000 nodes)
+SURFACE_TIME = 5.0          # phase 9's per-run budget, seconds; phase 1
+                            # on road300 leaves most of it to phase 2
 
 
 def fail(msg):
@@ -124,10 +147,13 @@ def graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def hbm_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def hbm_bound_ms(*tensors):
     """Least time to read the inputs once and write the output once."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return hbm_bytes(*tensors) / HBM_BYTES_PER_S * 1e3
 
 
 def k4_ops(b, n):
@@ -194,15 +220,56 @@ def time_k4(torch, adj, w, plain_iters):
     return ms, device_ms, plain_ms
 
 
+def enumeration_ops(b):
+    """int32 operations of the 2^16-subset enumeration for B instances of
+    16 vertices: per subset and vertex the chosen bit (shift, AND), the
+    covered test (AND, compare), the validity AND and the cost add (6); per
+    subset the sentinel select, the minimum and the first-index select (3)."""
+    return b * 2**16 * (16 * 6 + 3)
+
+
+def phase_enumeration(torch, adj, w, int_ops_per_s):
+    """The plain-torch 2^16 enumeration, the oracle of K4 at n = 16, on the
+    card: bitwise equal to K4; its device-op numbers."""
+    from gnn_mwvc_tpu_torch.ops.smallsolve import batched_small_mwvc
+    from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
+
+    c0, s0 = batched_small_mwvc(adj, w)
+    c1, s1 = small_mwvc_mitm(adj, w)
+    torch.cuda.synchronize()
+    if c0.device.type != "cuda":
+        fail("enumeration: result not on the card")
+    if not (torch.equal(c0, c1) and torch.equal(s0, s1)):
+        fail(f"enumeration: {int(((c0 != c1) | (s0 != s1)).sum())} of "
+             f"{len(c0)} instances differ from K4")
+    b = adj.shape[0]
+    ms = cuda_ms(lambda: batched_small_mwvc(adj, w), 5)
+    ops = enumeration_ops(b)
+    bound_ms = max(ops / int_ops_per_s, hbm_bytes(adj, w, c0, s0)
+                   / HBM_BYTES_PER_S) * 1e3
+    print(f"enumeration n=16 B={b}: bitwise equal to K4 on the card; "
+          f"{ms:.4f} ms on the card; bound {bound_ms:.5f} ms (int32, {ops} "
+          "ops)")
+    return {"name": "batched_small_mwvc", "route": "plain torch",
+            "source": "gnn_mwvc_tpu_torch/ops/smallsolve.py",
+            "replaces": "gnn_mwvc_tpu/ops/smallsolve.py:44",
+            "shape": f"B={b}, n=16", "ms": ms, "cpu_ms": None,
+            "bound_ms": bound_ms, "bound_by": "operations", "ops": ops}
+
+
 def phase_k4(torch, rng, int_ops_per_s):
-    """Returns the largest |cost difference| over all batches (0)."""
+    """Returns the largest |cost difference| over all batches (0) and the
+    enumeration's device-op numbers."""
     err = 0
+    enum = None
     for n in (16, 20):
         for b in (1, 7, 1024, 1500):
             adj, w = region_batch(rng, b, n)
             d_adj = torch.from_numpy(adj).cuda()
             d_w = torch.from_numpy(w).cuda()
             err = max(err, check_k4(torch, d_adj, d_w, f"n={n} B={b}"))
+            if n == 16 and b == 1024:
+                enum = phase_enumeration(torch, d_adj, d_w, int_ops_per_s)
             ms, device_ms, plain_ms = time_k4(torch, d_adj, d_w,
                                               3 if b >= 1024 else 5)
             bound_ms = k4_ops(b, n) / int_ops_per_s * 1e3
@@ -210,7 +277,7 @@ def phase_k4(torch, rng, int_ops_per_s):
                   f"({b / ms * 1e3:.6g} regions/s), {device_ms:.5f} ms/batch on "
                   f"the device; bound {bound_ms:.6f} ms (int32, "
                   f"{k4_ops(b, n)} ops); plain {plain_ms:.4f} ms/batch")
-    return err
+    return err, enum
 
 
 def phase_k1(torch, dg, rng):
@@ -593,6 +660,279 @@ def phase_regions(torch, g, cover, int_ops_per_s):
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "max_abs_err": err, "bound_ms": bound_ms}
 
+def r5_ops(deg):
+    """int32 operations r5_candidates needs: for each vertex of degree <= 8,
+    the exact MWVC of its neighbourhood over 2^8 subsets; per subset and
+    neighbour slot the chosen bit (shift, AND), the covered test (AND,
+    compare), the validity AND and the cost add (6), per subset the
+    sentinel select and the minimum (2)."""
+    return int((deg <= 8).sum()) * 256 * (8 * 6 + 2)
+
+
+def phase_prepass(torch, g, int_ops_per_s):
+    """The device rule prepass on the full graph; returns its device-op
+    numbers (rule_masks, r5_candidates)."""
+    import numpy as np
+
+    from gnn_mwvc_tpu_torch.core import CoreSolver
+    from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc_tpu_torch.ops import _build, rules
+    from gnn_mwvc_tpu_torch.solver.device_reduce import device_reduce_prepass
+    from gnn_mwvc_tpu_torch.solver.pipeline import gnn_peel
+    from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+
+    core = CoreSolver(g.weights, g.edge_array())
+    snap = core.snapshot()          # the snapshot the prepass starts from
+    n = snap.n
+    mask_in = rules.mask_inputs(snap.weights, snap.indptr, snap.indices)
+    ell, ellv = rules.build_ell8(snap.indptr.astype(np.int64),
+                                 snap.indices.astype(np.int64), snap.deg)
+    r5_in = (ell, ellv, snap.weights.astype(np.int32),
+             snap.nw.astype(np.int32), snap.deg.astype(np.int32))
+    outs, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        m_in = [torch.from_numpy(a).to(dev) for a in mask_in]
+        f_in = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in r5_in]
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        masks = rules.rule_masks(*m_in, ones)
+        r5 = rules.r5_candidates(*f_in, ones)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if any(t.device.type != "cuda" for t in [r5, *masks.values()]):
+                fail("prepass: masks not computed on the card")
+            ms["rule_masks"] = cuda_ms(lambda: rules.rule_masks(*m_in, ones), 5)
+            ms["r5_candidates"] = cuda_ms(
+                lambda: rules.r5_candidates(*f_in, ones), 3)
+            bytes_masks = hbm_bytes(*m_in, ones, masks["r1"],
+                                    masks["dom_edge"], masks["iso_cand"]) \
+                + 4 * n                       # the uint32 twin key
+            bytes_r5 = hbm_bytes(*f_in, ones, r5)
+        else:
+            t0 = time.perf_counter()
+            rules.rule_masks(*m_in, ones)
+            ms["rule_masks_cpu"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            rules.r5_candidates(*f_in, ones)
+            ms["r5_candidates_cpu"] = (time.perf_counter() - t0) * 1e3
+        outs[dev] = {**{k: v.cpu() for k, v in masks.items()}, "r5": r5.cpu()}
+    for key in outs["cpu"]:
+        if not torch.equal(outs["cuda"][key], outs["cpu"][key]):
+            bad = int((outs["cuda"][key] != outs["cpu"][key]).sum())
+            fail(f"prepass: {key} on the card differs from the CPU in {bad} "
+                 "places")
+    counts = {k: int(v.sum()) for k, v in outs["cpu"].items()
+              if v.dtype == torch.bool}
+    ops5 = r5_ops(snap.deg)
+    bound_masks = bytes_masks / HBM_BYTES_PER_S * 1e3
+    bound_r5 = max(ops5 / int_ops_per_s, bytes_r5 / HBM_BYTES_PER_S) * 1e3
+    print(f"prepass masks n={n} e={len(snap.indices)}: r1, twin_key, dom_edge, "
+          f"iso_cand and r5 bitwise equal on the card and the CPU (all "
+          f"vertices; set bits {counts}); rule_masks {ms['rule_masks']:.4f} ms "
+          f"on the card, {ms['rule_masks_cpu']:.1f} ms on the host CPU, bound "
+          f"{bound_masks:.5f} ms ({bytes_masks} bytes); r5_candidates "
+          f"{ms['r5_candidates']:.4f} ms on the card, "
+          f"{ms['r5_candidates_cpu']:.1f} ms on the host CPU, bound "
+          f"{bound_r5:.5f} ms (int32, {ops5} ops)")
+    del outs
+
+    rules.calls.clear()
+    t0 = time.perf_counter()
+    stats = device_reduce_prepass(core, device="cuda")
+    t_prepass = time.perf_counter() - t0
+    calls = dict(rules.calls)
+    if stats["rounds"] < 1 or calls.get("rule_masks/cuda") != stats["rounds"] \
+            or any(k.endswith("/cpu") for k in calls):
+        fail(f"prepass: rounds {stats['rounds']}, mask calls {calls}")
+    after_prepass = core.active_count
+    t0 = time.perf_counter()
+    core.reduce()
+    t_finish = time.perf_counter() - t0
+    fresh = CoreSolver(g.weights, g.edge_array())
+    t0 = time.perf_counter()
+    fresh.reduce()
+    t_host = time.perf_counter() - t0
+    print(f"prepass: stats {json.dumps(stats)}, mask calls {calls}; "
+          f"{t_prepass:.3f} s on the card, {after_prepass} nodes left, then "
+          f"host reduce {t_finish:.3f} s to a kernel of {core.active_count} "
+          f"(cost {core.cost}); host-only reduce of a fresh core {t_host:.3f} s "
+          f"to a kernel of {fresh.active_count} (cost {fresh.cost})")
+    del fresh
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    _t_kernel, _size, _cost, split = gnn_peel(
+        core, StickyGnnScorer(device="cuda"), float(g.weights.max()))
+    core.unfold(0)
+    sol = core.solution()
+    t_peel = time.perf_counter() - t0
+    if (sol < 0).any() or not is_vertex_cover(g, sol):
+        fail("prepass: the peeled cover is not a vertex cover")
+    if cover_cost(g, sol) != core.cost:
+        fail("prepass: cost does not match the cover")
+    if _build.launches.get("csr_aggregate", 0) < 2 * split["rounds"]:
+        fail(f"prepass: peel launched K1 {dict(_build.launches)} over "
+             f"{split['rounds']} rounds")
+    print(f"prepass peel: {split['rounds']} rounds with the sticky scorer on "
+          f"the card in {t_peel:.3f} s; valid cover of cost {core.cost}; "
+          f"launches {dict(_build.launches)}")
+    common = {"route": "plain torch", "source": "gnn_mwvc_tpu_torch/ops/rules.py",
+              "shape": f"n={n}, e={len(snap.indices)}",
+              "calls_in_prepass": stats["rounds"]}
+    return [
+        {"name": "rule_masks", "replaces": "gnn_mwvc_tpu/ops/rules.py:48",
+         "ms": ms["rule_masks"], "cpu_ms": ms["rule_masks_cpu"],
+         "bound_ms": bound_masks, "bound_by": "bytes", "bytes": bytes_masks,
+         **common},
+        {"name": "r5_candidates", "replaces": "gnn_mwvc_tpu/ops/rules.py:113",
+         "ms": ms["r5_candidates"], "cpu_ms": ms["r5_candidates_cpu"],
+         "bound_ms": bound_r5, "bound_by": "operations", "ops": ops5,
+         **common},
+    ]
+
+
+# Runs a module (``-m``) or a script file as ``__main__`` and, however it
+# ends, writes the kernel launch counts of its process to stderr.
+LAUNCH_PROBE = (
+    "import json, runpy, sys\n"
+    "from gnn_mwvc_tpu_torch.ops import _build\n"
+    "target, sys.argv = sys.argv[1], sys.argv[1:]\n"
+    "try:\n"
+    "    if target.endswith('.py'):\n"
+    "        runpy.run_path(target, run_name='__main__')\n"
+    "    else:\n"
+    "        runpy.run_module(target, run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    sys.stderr.write('\\nLAUNCHES ' + json.dumps(dict(_build.launches))"
+    " + '\\n')\n")
+
+
+def run_surface(what, target, args, need=(), timeout=300):
+    """One port entry point (a module or a script file) as a subprocess of
+    this interpreter, from the checkout.  A non-zero exit fails the smoke,
+    and so does a kernel of ``need`` that the process never launched.
+    Returns its stdout."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", LAUNCH_PROBE, target, *map(str, args)],
+        capture_output=True, text=True, timeout=timeout, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    if out.returncode != 0:
+        fail(f"{what}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-3000:]}")
+    probe = [ln for ln in out.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+    if not probe:
+        fail(f"{what}: no launch counts on stderr\n{out.stderr[-2000:]}")
+    launches = json.loads(probe[-1][len("LAUNCHES "):])
+    missing = [k for k in need if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"{what}: launched no {missing}; launches {launches}")
+    print(f"surface {what}: exit 0 in {time.perf_counter() - t0:.3f} s; "
+          f"launches {launches}; {out.stdout.strip().splitlines()[-1][:300]}")
+    return out.stdout
+
+
+def phase_surfaces(seed):
+    """Every new single-device entry point, each in its own process on the
+    card (the default device).  Each one that scores with the GNN must
+    launch K1, and each one with a phase 2 must launch K4 in its assist."""
+    import tempfile
+
+    from gnn_mwvc_tpu_torch.graph import build_road_graph, random_graph
+    from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
+                                            read_solution, write_metis)
+
+    graphs = {f"road{SURFACE_SIDE}": build_road_graph(SURFACE_SIDE, seed=seed),
+              "rnd20k": random_graph(20_000, 16, seed=seed, wmax=1000)}
+    both = ("csr_aggregate", "small_mwvc_mitm")
+    t = str(SURFACE_TIME)
+    with tempfile.TemporaryDirectory(prefix="mwvc_surfaces_") as tmp:
+        paths = {}
+        for name, g in graphs.items():
+            paths[name] = os.path.join(tmp, name + ".metis")
+            write_metis(paths[name], g)
+        road = f"road{SURFACE_SIDE}"
+        g = graphs[road]
+
+        def checked_cover(path, cost, what):
+            sol = read_solution(path)
+            if not is_vertex_cover(g, sol) or cover_cost(g, sol) != cost:
+                fail(f"{what}: the written cover is invalid or costs "
+                     f"{cover_cost(g, sol)}, not {cost}")
+            return sol
+
+        def script(name, body):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write("import json\n"
+                        "from gnn_mwvc_tpu_torch.graphio import read_metis\n"
+                        f"g = read_metis({paths[road]!r})\n" + body)
+            return path
+
+        # --quick scores without the GNN: K4 in phase 2 only
+        sol_path = os.path.join(tmp, road + ".sol")
+        line = run_surface("gnn-vc-torch --quick",
+                           "gnn_mwvc_tpu_torch.solver.cli",
+                           [paths[road], sol_path, t, "-1", "0", "--quick"],
+                           need=("small_mwvc_mitm",)
+                           ).strip().splitlines()[-1].split(",")
+        if line[0] != road or len(line) not in (4, 8):
+            fail(f"gnn-vc-torch --quick: CSV line {line}")
+        quick_cost = int(line[1] if len(line) == 4 else line[6])
+        checked_cover(sol_path, quick_cost, "gnn-vc-torch --quick")
+
+        out_dir = os.path.join(tmp, "batch")
+        rows = [json.loads(ln) for ln in run_surface(
+            "mwvc-batch-torch", "gnn_mwvc_tpu_torch.solver.batch",
+            [*paths.values(), "--out", out_dir, "--time", t, "--json"],
+            need=both).splitlines() if ln.startswith("{")]
+        if rows[-1].get("instances") != 2 or any(
+                r.get("device") != "cuda" for r in rows[:-1]):
+            fail(f"mwvc-batch-torch: rows {rows}")
+        checked_cover(rows[0]["solution"], rows[0]["cost"], "mwvc-batch-torch")
+
+        ckpt = os.path.join(tmp, road + ".ckpt.npz")
+        first = json.loads(run_surface("solve with a checkpoint", script(
+            "ckpt_solve.py",
+            "from gnn_mwvc_tpu_torch.solver.pipeline import solve\n"
+            "from gnn_mwvc_tpu_torch.solver.checkpoint import load_checkpoint\n"
+            f"r = solve(g, time_limit={3 * SURFACE_TIME}, "
+            f"checkpoint_path={ckpt!r}, checkpoint_interval=0.0)\n"
+            f"c, m = load_checkpoint({ckpt!r}, g)\n"
+            "print(json.dumps({'cost': r.cost, 'checkpoint_cost': m['cost'], "
+            "'assist': r.assist_stats}))\n"), [], need=both
+        ).strip().splitlines()[-1])
+        if first["checkpoint_cost"] < first["cost"] or not first["assist"]:
+            fail(f"solve with a checkpoint: {first}")
+        # resume_solve is the host local search alone: no kernel to launch
+        second = json.loads(run_surface("resume_solve", script(
+            "resume.py",
+            "from gnn_mwvc_tpu_torch.solver.checkpoint import resume_solve\n"
+            f"b, c, s = resume_solve(g, {ckpt!r}, 3.0)\n"
+            "print(json.dumps({'cost': c}))\n"), []
+        ).strip().splitlines()[-1])
+        if second["cost"] > first["checkpoint_cost"]:
+            fail(f"resume_solve: cost {second['cost']} worse than the "
+                 f"checkpoint's {first['checkpoint_cost']}")
+
+        # on the road graph, where a kernel is left for the GNN and phase 2
+        (row,) = json.loads(run_surface(
+            "mwvc-bench-torch", "gnn_mwvc_tpu_torch.solver.benchmark",
+            [paths[road], "--time", t, "--json", "--solvers",
+             "gnn,quick,approx,fastwvc,ref:GNN_VC"], need=both
+        ).strip().splitlines()[-1])
+        if any(not row.get(s) for s in ("gnn", "quick", "approx", "fastwvc")):
+            fail(f"mwvc-bench-torch: row {row}")
+
+        out = run_surface("mwvc-tools-torch vc-validate",
+                          "gnn_mwvc_tpu_torch.graphio.cli",
+                          ["vc-validate", paths[road], sol_path])
+        if f"cost {quick_cost}" not in out:
+            fail(f"mwvc-tools-torch vc-validate: {out.strip()}")
+    print(f"surfaces: quick cost {quick_cost}; batch costs "
+          f"{[r['cost'] for r in rows[:-1]]}; checkpoint {first}, resumed "
+          f"{second}; bench {json.dumps(row)}")
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -644,7 +984,7 @@ def main():
 
     rng = np.random.default_rng(args.seed)
     # 3. K4
-    k4_err = phase_k4(torch, rng, int_ops_per_s)
+    k4_err, enum_op = phase_k4(torch, rng, int_ops_per_s)
 
     # 4. K1 and 5. forward on the road-like graph
     from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
@@ -663,10 +1003,19 @@ def main():
     # 6. solve, then K4 on regions of its cover
     launches, cover = phase_solve(torch, g, args.time)
     k4_road = phase_regions(torch, g, cover, int_ops_per_s)
-    del g, cover
+    del cover
 
     # 7. train
     train_launches = phase_train(torch, args.seed)
+
+    # 8. the rule prepass on the full road-like graph
+    if args.side != ROAD_SIDE:
+        g = build_road_graph(ROAD_SIDE)
+    device_ops = phase_prepass(torch, g, int_ops_per_s) + [enum_op]
+    del g
+
+    # 9. the remaining single-device surfaces
+    phase_surfaces(args.seed)
 
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
@@ -705,6 +1054,7 @@ def main():
          "library_ms": None, "device_ms": k4_road["device_ms"],
          "library_device_ms": None, "timing": timing},
     ]}))
+    print(json.dumps({"device_ops": device_ops}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ headers beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at
 first use.  The sources are only read; no Python of the JAX package runs and
 nothing is written next to them.  These bindings cover what the port calls:
 the kernelisation engine (``CoreSolver``), the phase-2 local search
-(``CoreLocalSearch``) and two orderings.
+(``CoreLocalSearch``), two orderings, and the constructions and baseline
+solvers behind the approximation solver, the ablation grid and
+``mwvc-baseline-torch``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import threading
 import numpy as np
 
 __all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
-           "confidence_order_native", "cluster_order"]
+           "confidence_order_native", "cluster_order", "improve_cover",
+           "approx_cover", "greedy_cover", "baseline_solve", "BASELINE_IDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(os.path.dirname(_PKG), "gnn_mwvc_tpu", "core", "src")
@@ -53,10 +56,18 @@ _SIGNATURES = {
     "mwvc_label_count": ([_c], ct.c_uint64),
     "mwvc_reset_label_count": ([_c], None),
     "mwvc_counters": ([_c, u64p], None),
+    "mwvc_is_active": ([_c, ct.c_uint32], ct.c_int),
     "mwvc_decided": ([_c, ct.c_uint32], ct.c_int),
+    "mwvc_select_node": ([_c, ct.c_uint32], None),
+    "mwvc_select_neighborhood": ([_c, ct.c_uint32], None),
     "mwvc_snapshot_edges": ([_c], ct.c_uint64),
     "mwvc_snapshot": ([_c, u32p, u32p, u64p, u32p, u64p, u32p], ct.c_uint32),
     "mwvc_solve_small_components": ([_c, ct.c_uint32], ct.c_uint32),
+    "mwvc_bulk_begin": ([_c], None),
+    "mwvc_bulk_r1": ([_c, u32p, ct.c_uint32], ct.c_uint32),
+    "mwvc_bulk_twins": ([_c, u32p, ct.c_uint32], ct.c_uint32),
+    "mwvc_bulk_r5": ([_c, u32p, ct.c_uint32], ct.c_uint32),
+    "mwvc_labels_from_model": ([_c], ct.c_uint64),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
                            None),
     "mwvc_confidence_order": ([ct.c_uint32, f32p, u64p, u32p, ct.c_double,
@@ -65,6 +76,7 @@ _SIGNATURES = {
                   ct.c_uint64),
     "mwvc_unfold": ([_c, ct.c_uint64], None),
     "mwvc_get_solution": ([_c, i8p], None),
+    "mwvc_preview_solution": ([_c, i8p], None),
     "mwvc_apply_cover": ([_c, u32p, u8p, ct.c_uint32], None),
     "mwvc_sticky_deltas": ([_c, ct.c_uint32, u32p, u64p, u64p, u32p, u8p,
                             i32p, f32p, f32p, f32p, u8p, ct.c_uint32],
@@ -90,6 +102,21 @@ _SIGNATURES = {
                                 ct.c_uint32),
     "mwvc_ls_apply_region": ([_c, ct.c_uint32, u32p, ct.c_uint32], ct.c_int),
     "mwvc_ls_commit_patches": ([_c], ct.c_int),
+    "mwvc_ls_get_dscores": ([_c, u32p], None),
+    "mwvc_ls_rebuild_scores": ([_c], None),
+    "mwvc_improve_cover": ([ct.c_uint32, u32p, ct.c_uint64, u32p, u32p, u8p],
+                           ct.c_uint64),
+    "mwvc_approx_construct": ([ct.c_uint32, u32p, ct.c_uint64, u32p, u32p,
+                               u8p], ct.c_uint64),
+    "mwvc_greedy_construct": ([ct.c_uint32, u32p, ct.c_uint64, u32p, u32p,
+                               u8p], ct.c_uint64),
+    "mwvc_baseline_solve": ([ct.c_int, ct.c_uint32, u32p, ct.c_uint64, u32p,
+                             u32p, ct.c_uint32, ct.c_double, ct.c_int, u8p,
+                             ct.POINTER(ct.c_double)], ct.c_uint64),
+    "mwvc_hils_solve": ([ct.c_uint32, u32p, ct.c_uint64, u32p, u32p,
+                         ct.c_uint32, ct.c_double, ct.c_uint64, ct.c_int,
+                         ct.c_int, ct.c_int, ct.c_int, ct.c_uint64, u8p,
+                         ct.POINTER(ct.c_double)], ct.c_uint64),
 }
 
 
@@ -196,6 +223,9 @@ class CoreSolver:
         self._lib.mwvc_counters(self._h, out)
         return out
 
+    def is_active(self, u):
+        return bool(self._lib.mwvc_is_active(self._h, u))
+
     def decided(self, u):
         return int(self._lib.mwvc_decided(self._h, u))
 
@@ -203,6 +233,12 @@ class CoreSolver:
         if critical is None:
             critical = self.active_count < 1000
         self._lib.mwvc_reduce(self._h, int(critical))
+
+    def select_node(self, u):
+        self._lib.mwvc_select_node(self._h, u)
+
+    def select_neighborhood(self, u):
+        self._lib.mwvc_select_neighborhood(self._h, u)
 
     def snapshot(self) -> Snapshot:
         n_act = self.active_count
@@ -218,6 +254,30 @@ class CoreSolver:
         if n_act == 0:
             indptr[0] = 0
         return Snapshot(ids, wts, nw, deg, indptr, indices)
+
+    def begin_bulk_pass(self):
+        """Start a bulk-apply pass: until it ends the core tracks which
+        nodes' 1-hop instances drift from the snapshot the device masks
+        were computed on (see bulk_r5)."""
+        self._lib.mwvc_bulk_begin(self._h)
+
+    def bulk_r1(self, ids):
+        """Apply rule 1 to the candidates; the core re-checks each against
+        the live state.  Returns the count applied."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint32)
+        return int(self._lib.mwvc_bulk_r1(self._h, ids, len(ids)))
+
+    def bulk_twins(self, pairs):
+        """Fold candidate twin pairs ((k, 2) ids); the core re-checks exact
+        twinness.  Returns the count applied."""
+        pairs = np.ascontiguousarray(pairs, dtype=np.uint32).reshape(-1)
+        return int(self._lib.mwvc_bulk_twins(self._h, pairs, len(pairs) // 2))
+
+    def bulk_r5(self, ids):
+        """Apply device-proved rule-5 verdicts to clean candidates only: the
+        core skips any whose instance changed since begin_bulk_pass."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint32)
+        return int(self._lib.mwvc_bulk_r5(self._h, ids, len(ids)))
 
     def sticky_deltas(self, ids, prev_w, prev_nw, prev_deg, prev_act,
                       out_idx, out_vw, out_vnw, out_vdeg, out_vm):
@@ -252,12 +312,23 @@ class CoreSolver:
         return int(self._lib.mwvc_peel(self._h, order, prob, len(order),
                                        relable_interval, flags))
 
+    @property
+    def labels_from_model(self):
+        return int(self._lib.mwvc_labels_from_model(self._h))
+
     def unfold(self, t=0):
         self._lib.mwvc_unfold(self._h, t)
 
     def solution(self):
         out = np.empty(self.n_org, dtype=np.int8)
         self._lib.mwvc_get_solution(self._h, out)
+        return out
+
+    def preview_solution(self):
+        """The original-vertex solution as if unfolded now; the state is
+        kept."""
+        out = np.empty(self.n_org, dtype=np.int8)
+        self._lib.mwvc_preview_solution(self._h, out)
         return out
 
     def apply_cover(self, ids, vals):
@@ -347,6 +418,16 @@ class CoreLocalSearch:
         best improved."""
         return bool(self._lib.mwvc_ls_commit_patches(self._h))
 
+    def dscores(self):
+        out = np.empty(self.n, dtype=np.uint32)
+        self._lib.mwvc_ls_get_dscores(self._h, out)
+        return out
+
+    def rebuild_scores(self):
+        """Rebuild the dscores, scores and heap from scratch (patching keeps
+        them up to date incrementally; this is the check)."""
+        self._lib.mwvc_ls_rebuild_scores(self._h)
+
     @property
     def cost(self):
         return int(self._lib.mwvc_ls_cost(self._h))
@@ -384,3 +465,65 @@ def cluster_order(indptr, indices, cluster_size=128):
     perm = np.empty(n, dtype=np.uint32)
     lib.mwvc_cluster_order(n, indptr, indices, cluster_size, perm)
     return perm
+
+
+def improve_cover(weights, edges, vc):
+    """Neighbourhood-improvement pass over a cover; returns (cost, cover)."""
+    lib = _load()
+    w = np.ascontiguousarray(weights, dtype=np.uint32)
+    m, eu, ev = _split_edges(edges)
+    vc = np.ascontiguousarray(vc, dtype=np.uint8).copy()
+    cost = lib.mwvc_improve_cover(len(w), w, m, eu, ev, vc)
+    return int(cost), vc
+
+
+def _construct(fn_name, weights, edges):
+    lib = _load()
+    w = np.ascontiguousarray(weights, dtype=np.uint32)
+    m, eu, ev = _split_edges(edges)
+    vc = np.zeros(len(w), dtype=np.uint8)
+    cost = getattr(lib, fn_name)(len(w), w, m, eu, ev, vc)
+    return int(cost), vc
+
+
+def approx_cover(weights, edges):
+    """Primal-dual 2-approximation construction; returns (cost, cover)."""
+    return _construct("mwvc_approx_construct", weights, edges)
+
+
+def greedy_cover(weights, edges):
+    """Degree/weight greedy construction; returns (cost, cover)."""
+    return _construct("mwvc_greedy_construct", weights, edges)
+
+
+BASELINE_IDS = {"fastwvc": 0, "dynwvc2": 1, "numwvc": 2, "hils": 3}
+
+
+def baseline_solve(which, weights, edges, seed=1, cutoff=10.0, cc_mode=3,
+                   iterations=None, p=None, target=None):
+    """Run a comparison baseline solver; returns (cost, cover, time_to_best).
+
+    which: "fastwvc" | "dynwvc2" | "numwvc" | "hils" (hils solves MWIS and
+    returns the complement cover; cost = total weight - IS weight).  hils
+    only, the reference's flags: iterations (-i, default 2,000,000), p (-p,
+    4 intensification parameters, default (2, 4, 4, 1)), target (stop once
+    the IS weight reaches it).
+    """
+    lib = _load()
+    w = np.ascontiguousarray(weights, dtype=np.uint32)
+    m, eu, ev = _split_edges(edges)
+    vc = np.zeros(len(w), dtype=np.uint8)
+    tbest = ct.c_double(0.0)
+    if which == "hils" and (iterations is not None or p is not None
+                            or target is not None):
+        p = tuple(p) if p is not None else (2, 4, 4, 1)
+        cost = lib.mwvc_hils_solve(
+            len(w), w, m, eu, ev, seed, cutoff,
+            int(iterations if iterations is not None else 2_000_000),
+            int(p[0]), int(p[1]), int(p[2]), int(p[3]), int(target or 0), vc,
+            ct.byref(tbest))
+    else:
+        cost = lib.mwvc_baseline_solve(BASELINE_IDS[which], len(w), w, m, eu,
+                                       ev, seed, cutoff, cc_mode, vc,
+                                       ct.byref(tbest))
+    return int(cost), vc, float(tbest.value)

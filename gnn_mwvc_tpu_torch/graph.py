@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Graph", "DeviceGraph", "build_road_graph"]
+__all__ = ["Graph", "DeviceGraph", "build_road_graph", "random_graph"]
 
 
 class Graph:
@@ -154,3 +154,18 @@ def build_road_graph(side: int, seed: int = 42, extra: float = 0.05) -> Graph:
     e = np.unique(np.concatenate(edges, 0), axis=0)
     w = rng.integers(1, 1001, size=n)
     return Graph(w, e)
+
+
+def random_graph(n: int, avg_deg: int, seed: int = 0,
+                 wmax: int = 1000) -> Graph:
+    """Random weighted graph from random vertex pairs, weights in [1, wmax]:
+    the same generator (and, for a given seed, the same graph) as the
+    repository's test helper ``tests/conftest.py::random_graph``."""
+    rng = np.random.default_rng(seed)
+    m = n * avg_deg // 2
+    u = rng.integers(0, n, size=m * 2)
+    v = rng.integers(0, n, size=m * 2)
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    keep = lo != hi
+    edges = np.unique(np.stack([lo[keep], hi[keep]], axis=1), axis=0)[:m]
+    return Graph(rng.integers(1, wmax + 1, size=n), edges)

@@ -8,8 +8,11 @@ best]``; when the graph reduces fully or no local search ran:
 ``[graph],[N],[E],[kernel],[cost_gnn],[t_gnn],[cost],[t]``.
 
 Options: ``--device`` (default cuda; cuda without a GPU is an error),
-``--device-assist/--no-device-assist`` (default: on for CUDA), ``--model``
-(a model file in the reference text format), ``--json``.
+``--device-assist/--no-device-assist`` (default: on for CUDA), ``--quick``
+(no GNN: the weight/degree priority of the reference's QUICK_VC), ``--model``
+(a model file in the reference text format), ``--json``.  ``--shards N`` (the
+JAX package's multi-device scoring) is refused for N > 0: that path is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,15 +37,23 @@ def main(argv=None):
                     default=None,
                     help="device-batched exact region patches and guided "
                          "kicks in phase 2 (default: on for CUDA)")
+    ap.add_argument("--quick", action="store_true",
+                    help="no-GNN mode: weight/degree priority (QUICK_VC)")
     ap.add_argument("--model", default=None,
                     help="model file in the reference text format")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="multi-device scoring: not ported yet, only 0")
     args = ap.parse_args(argv)
+    if args.shards:
+        ap.error("--shards: multi-device scoring is not ported to this "
+                 "package yet; run on one device (--shards 0)")
 
     from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
                                             read_metis, write_solution)
     from gnn_mwvc_tpu_torch.models import MWVCModel, load_model
     from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.solver.quick import QuickScorer
 
     name = os.path.splitext(os.path.basename(args.graph))[0]
     try:
@@ -60,6 +71,7 @@ def main(argv=None):
     model = MWVCModel.from_spec(load_model(args.model)) if args.model else None
     res = solve(g, model=model, time_limit=args.time,
                 relable_interval=args.k, verbose=verbose, device=args.device,
+                scorer=QuickScorer() if args.quick else None,
                 device_assist=("auto" if args.device_assist is None
                                else args.device_assist))
 

@@ -33,7 +33,9 @@ from gnn_mwvc_tpu_torch.core import (
     confidence_order_native,
 )
 from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
+from gnn_mwvc_tpu_torch.graphio import cover_cost
 from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model, score_graph
+from gnn_mwvc_tpu_torch.solver.checkpoint import save_checkpoint
 
 __all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
            "gnn_peel", "resolve_device", "solve"]
@@ -157,6 +159,8 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
         t_kernel = core.timestamp
     if isinstance(getattr(scorer, "stats", None), dict):
         split["scorer"] = dict(scorer.stats)
+        if metrics is not None:
+            metrics.record_scorer(dict(scorer.stats))
     return t_kernel, kernel_size, initial_cost, split
 
 
@@ -168,6 +172,8 @@ def solve(
     verbose: bool = False,
     scorer=None,
     seed_step_size: int = 1 << 16,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_interval: float = 60.0,
     reorder: bool = False,
     metrics=None,
     ls_forget_after: int = 0,
@@ -186,6 +192,11 @@ def solve(
     raises.  scorer: defaults to sticky scoring on ``device``.
     device_assist: "auto" = on iff ``device`` is CUDA.
 
+    checkpoint_path: when set, each phase-2 improvement found at least
+    ``checkpoint_interval`` seconds after the last checkpoint writes the
+    full cover of ``g`` there (``solver/checkpoint.py``; resume with
+    ``resume_solve``).
+
     ls_ils_stall > 0 enables the ILS schedule: after that many consecutive
     non-improving batches at the step-size floor, restore the best cover
     and kick it with a force-k perturbation (k doubles while kicks fail to
@@ -199,6 +210,7 @@ def solve(
         return SolveResult(np.zeros(0, np.int8), 0, 0, 0.0, 0.0, 0.0, 0, 0,
                            np.zeros(8, np.uint64))
 
+    g_orig = g
     perm = None
     if reorder:
         # clustered relabel for aggregation locality; the solution is mapped
@@ -267,6 +279,7 @@ def solve(
 
     t2 = time.perf_counter()
     t_best = t2
+    last_ckpt = t2
     step_size = seed_step_size
     stalled = 0
     kicks = 0
@@ -281,6 +294,13 @@ def solve(
             if verbose:
                 print(f"{time_gnn + (t_best - t2):.2f},"
                       f"{ls.best_cost + initial_cost}, step size {step_size}")
+            if checkpoint_path and t_best - last_ckpt >= checkpoint_interval:
+                core.apply_cover(snap.ids, ls.best())
+                full = _unperm((core.preview_solution() == 1).astype(np.int8))
+                save_checkpoint(checkpoint_path, g_orig, full,
+                                cover_cost(g_orig, full),
+                                time_gnn + (t_best - t2))
+                last_ckpt = t_best
         else:
             step_size = max(step_size // 2, 1 << 10)
             if step_size == 1 << 10:

@@ -8,11 +8,13 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from gnn_mwvc_tpu import core as jax_core
 from gnn_mwvc_tpu_torch import core
 from gnn_mwvc_tpu_torch.core import api
+from gnn_mwvc_tpu_torch.ops import rules
 from tests.conftest import random_graph
 
 GRAPHS = {"road60": lambda: bench.build_road_graph(60),
@@ -77,3 +79,111 @@ def test_orders_equal_jax(name):
     np.testing.assert_array_equal(
         core.cluster_order(gj.indptr, gj.indices),
         jax_core.cluster_order(gj.indptr, gj.indices))
+
+
+def _pair(gj):
+    return (core.CoreSolver(gj.weights, gj.edge_array()),
+            jax_core.CoreSolver(gj.weights, gj.edge_array()))
+
+
+def _same_state(ours, ref):
+    assert (ours.active_count, ours.cost, ours.n_nodes, ours.timestamp) == (
+        ref.active_count, ref.cost, ref.n_nodes, ref.timestamp)
+    a, b = ours.snapshot(), ref.snapshot()
+    for field in ("ids", "weights", "nw", "deg", "indptr", "indices"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    np.testing.assert_array_equal(ours.counters, ref.counters)
+    np.testing.assert_array_equal(ours.preview_solution(),
+                                  ref.preview_solution())
+    ids = np.arange(ours.n_nodes, dtype=np.uint32)
+    assert [ours.is_active(u) for u in ids] == [ref.is_active(u) for u in ids]
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_select_and_state_bindings_equal_jax(name):
+    gj = GRAPHS[name]()
+    ours, ref = _pair(gj)
+    _same_state(ours, ref)
+    rng = np.random.default_rng(5)
+    live = [u for u in range(ours.n_nodes) if ours.is_active(u)]
+    for u in rng.choice(live, size=6, replace=False):
+        if not ours.is_active(int(u)):
+            continue
+        if u % 2:
+            ours.select_node(int(u))
+            ref.select_node(int(u))
+        else:
+            ours.select_neighborhood(int(u))
+            ref.select_neighborhood(int(u))
+        _same_state(ours, ref)
+    ours.reduce()
+    ref.reduce()
+    _same_state(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bulk_pass_bindings_equal_jax(name):
+    gj = GRAPHS[name]()
+    ours, ref = _pair(gj)
+    snap = ours.snapshot()
+    nw = snap.nw.astype(np.int64)
+    ids = snap.ids
+    r1 = ids[nw <= snap.weights]
+    # r5 verdicts are applied unchecked, so they come from the r5 mask
+    ell, ellv = rules.build_ell8(snap.indptr.astype(np.int64),
+                                 snap.indices.astype(np.int64), snap.deg)
+    r5 = ids[rules.r5_candidates(*[torch.from_numpy(a) for a in (
+        ell, ellv, snap.weights.astype(np.int32), nw.astype(np.int32),
+        snap.deg.astype(np.int32), np.ones(snap.n, bool))]).numpy()
+        & (nw > snap.weights)]
+    # candidate pairs of vertices with equal degree and NW (the core
+    # re-checks twinness)
+    key = snap.deg.astype(np.int64) << 40 | nw
+    order = np.argsort(key, kind="stable")
+    same = np.nonzero(key[order][1:] == key[order][:-1])[0]
+    pairs = np.stack([ids[order][same], ids[order][same + 1]], 1)
+    for c in (ours, ref):
+        c.begin_bulk_pass()
+    assert ours.bulk_r1(r1) == ref.bulk_r1(r1)
+    assert ours.bulk_twins(pairs) == ref.bulk_twins(pairs)
+    assert ours.bulk_r5(r5) == ref.bulk_r5(r5)
+    _same_state(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_peel_model_counters_equal_jax(name):
+    gj = GRAPHS[name]()
+    ours, ref = _pair(gj)
+    snap = ours.snapshot()
+    prob = np.random.default_rng(6).random(snap.n).astype(np.float32)
+    order = np.argsort(np.minimum(prob, 1 - prob), kind="stable")
+    for c in (ours, ref):
+        c.reset_label_count()
+        c.peel(snap.ids[order], prob[order], -1)
+    assert ours.labels_from_model == ref.labels_from_model > 0
+    _same_state(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_constructions_and_dscores_equal_jax(name):
+    gj = GRAPHS[name]()
+    w, e = gj.weights, gj.edge_array()
+    for fn in ("approx_cover", "greedy_cover"):
+        (c0, v0), (c1, v1) = getattr(core, fn)(w, e), getattr(jax_core, fn)(w, e)
+        assert c0 == c1, fn
+        np.testing.assert_array_equal(v0, v1)
+    start = np.ones(gj.n, np.uint8)
+    c0, v0 = core.improve_cover(w, e, start)
+    c1, v1 = jax_core.improve_cover(w, e, start.copy())
+    assert c0 == c1 < int(w.sum())
+    np.testing.assert_array_equal(v0, v1)
+    assert start.all()  # the port leaves its input alone
+
+    ours = core.CoreLocalSearch(w, e, start)
+    ref = jax_core.CoreLocalSearch(w, e, start)
+    ours.search(3000, 5.0)
+    ref.search(3000, 5.0)
+    np.testing.assert_array_equal(ours.dscores(), ref.dscores())
+    inc = ours.dscores().copy()
+    ours.rebuild_scores()
+    np.testing.assert_array_equal(inc, ours.dscores())

@@ -215,3 +215,73 @@ def test_solve_on_cuda_uses_both_kernels(cuda):
     assert _build.launches["csr_aggregate"] >= 2 * res.phase1["rounds"] > 0
     assert _build.launches["small_mwvc_mitm"] >= 1
     assert res.assist_stats["batches"] >= 1
+
+
+def _big_weights(n, deg, seed):
+    """Weights that push NW past 2^24 and some rows past 2^32."""
+    g = _random_graph(n, deg, seed)
+    rng = np.random.default_rng(seed)
+    w = rng.integers(2**24, 2**31 - 1, size=n)
+    w[rng.random(n) < 0.3] = 1
+    return Graph(w, g.edge_array())
+
+
+@pytest.mark.parametrize("name", ["road", "heavy"])
+def test_rule_masks_and_r5_on_cuda_equal_cpu(cuda, name):
+    from gnn_mwvc_tpu_torch.ops import rules
+
+    g = build_road_graph(80) if name == "road" else _big_weights(3000, 8, 9)
+    arrays = rules.mask_inputs(g.weights, g.indptr, g.indices)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        m = rules.rule_masks(*t, torch.ones(g.n, dtype=torch.bool, device=dev))
+        assert all(v.device.type == dev.type for v in m.values())
+        outs.append({k: v.cpu() for k, v in m.items()})
+    for key in outs[1]:
+        assert torch.equal(outs[0][key], outs[1][key]), key
+    if name == "road":
+        deg = np.diff(g.indptr)
+        nw = np.bincount(np.repeat(np.arange(g.n), deg),
+                         weights=g.weights[g.indices], minlength=g.n)
+        ell, ellv = rules.build_ell8(g.indptr, g.indices, deg)
+        args = (ell, ellv, g.weights.astype(np.int32), nw.astype(np.int32),
+                deg.astype(np.int32), np.ones(g.n, bool))
+        r5 = [rules.r5_candidates(*[torch.from_numpy(a).to(dev) for a in args],
+                                  chunk=997).cpu()
+              for dev in (cuda, torch.device("cpu"))]
+        assert torch.equal(r5[0], r5[1])
+
+
+def test_prepass_on_cuda_gives_the_cpu_stats(cuda):
+    from gnn_mwvc_tpu_torch.core import CoreSolver
+    from gnn_mwvc_tpu_torch.ops import rules
+    from gnn_mwvc_tpu_torch.solver.device_reduce import device_reduce_prepass
+
+    g = build_road_graph(120)
+    runs = []
+    for dev in (cuda, "cpu"):
+        core = CoreSolver(g.weights, g.edge_array())
+        rules.calls.clear()
+        stats = device_reduce_prepass(core, min_nodes=0, device=dev)
+        assert rules.calls[f"rule_masks/{torch.device(dev).type}"] == \
+            stats["rounds"] >= 1
+        snap = core.snapshot()
+        runs.append((stats, core.cost, core.counters.tolist(),
+                     snap.ids.tolist()))
+    assert runs[0] == runs[1]
+
+
+def test_enumeration_on_cuda_equals_k4(cuda):
+    from gnn_mwvc_tpu_torch.ops.smallsolve import batched_small_mwvc
+
+    adj, w = _k4_batch(np.random.default_rng(77), 1200, 16)
+    # the enumeration reads each vertex's own bits; K4 the reference's
+    # symmetrised conflicts, so they agree on symmetric rows only
+    sym = np.arange(len(adj)) % 6 != 5
+    adj, w = np.ascontiguousarray(adj[sym]), np.ascontiguousarray(w[sym])
+    d_adj, d_w = torch.from_numpy(adj).to(cuda), torch.from_numpy(w).to(cuda)
+    c0, s0 = batched_small_mwvc(d_adj, d_w)
+    c1, s1 = small_mwvc_mitm(d_adj, d_w)
+    assert c0.device.type == "cuda"
+    assert torch.equal(c0, c1) and torch.equal(s0, s1)

@@ -85,10 +85,29 @@ def test_port_imports_no_jax():
         "import io, os, sys\n"
         "import gnn_mwvc_tpu_torch.solver.cli, gnn_mwvc_tpu_torch.solver.pipeline\n"
         "import gnn_mwvc_tpu_torch.train, gnn_mwvc_tpu_torch.train.cli\n"
+        "import gnn_mwvc_tpu_torch.utils\n"
+        "import gnn_mwvc_tpu_torch.ops.rules, gnn_mwvc_tpu_torch.ops.smallsolve\n"
+        "import gnn_mwvc_tpu_torch.solver.device_reduce\n"
+        "import gnn_mwvc_tpu_torch.solver.quick\n"
+        "import gnn_mwvc_tpu_torch.solver.checkpoint\n"
+        "import gnn_mwvc_tpu_torch.solver.approximation\n"
+        "import gnn_mwvc_tpu_torch.solver.ablation\n"
+        "from gnn_mwvc_tpu_torch.solver.batch import main as _batch\n"
+        "from gnn_mwvc_tpu_torch.solver.benchmark import main as _bench\n"
+        "from gnn_mwvc_tpu_torch.graphio.cli import main as _tools\n"
+        "from gnn_mwvc_tpu_torch.solver.baselines.cli import main as _base\n"
+        "from gnn_mwvc_tpu_torch.solver.cli import main as _cli\n"
         "from gnn_mwvc_tpu_torch.graphio import read_metis\n"
         "from gnn_mwvc_tpu_torch.solver.pipeline import solve\n"
         f"g = read_metis(io.BytesIO({EX3!r}))\n"
         "assert solve(g, time_limit=0.5, device='cpu').cost == 20\n"
+        "from gnn_mwvc_tpu_torch.core import CoreSolver\n"
+        "from gnn_mwvc_tpu_torch.solver.quick import QuickScorer\n"
+        "gnn_mwvc_tpu_torch.solver.device_reduce.device_reduce_prepass(\n"
+        "    CoreSolver(g.weights, g.edge_array()), min_nodes=0, device='cpu')\n"
+        "assert solve(g, time_limit=0, scorer=QuickScorer(),\n"
+        "             device='cpu').cost == 20\n"
+        "gnn_mwvc_tpu_torch.solver.ablation.run_ablation(g, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.')]\n"

@@ -128,3 +128,45 @@ def test_wrapper_rejects_bad_inputs(bad):
         w = w[:3]
     with pytest.raises(ValueError):
         small_mwvc_mitm(adj, w)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_torch_enumeration_equals_jax_and_k4_plain(case):
+    """The port's 2^16-subset enumeration (the oracle K4 is held against
+    on the card) against the JAX enumeration and K4's plain version."""
+    from gnn_mwvc_tpu.ops.smallsolve import pack_instances as jax_pack
+    from gnn_mwvc_tpu_torch.ops.smallsolve import (batched_small_mwvc as
+                                                   torch_enumeration,
+                                                   pack_instances)
+
+    rng = np.random.default_rng(sorted(CASES).index(case) + 53)
+    instances = CASES[case](rng, 23, 16)
+    adj, w = _pack(instances, 16)
+    if case != "forced":  # pack_instances has no self-loop convention
+        loopless = [(wts, [e for e in edges if e[0] != e[1]])
+                    for wts, edges in instances]
+        for a, b in zip(pack_instances(loopless), jax_pack(loopless)):
+            np.testing.assert_array_equal(a, b)
+    c, s = torch_enumeration(torch.from_numpy(adj), torch.from_numpy(w))
+    assert c.dtype == s.dtype == torch.int32
+    c0, s0 = batched_small_mwvc(adj, w)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(c0))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s0))
+    c1, s1 = _plain(adj, w)
+    np.testing.assert_array_equal(c.numpy(), c1)
+    np.testing.assert_array_equal(s.numpy(), s1)
+
+
+def test_torch_enumeration_chunks_and_rejects_bad_shapes():
+    from gnn_mwvc_tpu_torch.ops import smallsolve
+
+    rng = np.random.default_rng(61)
+    adj, w = _pack(_random(rng, 300, 16), 16)   # more than one chunk
+    c, s = smallsolve.batched_small_mwvc(torch.from_numpy(adj),
+                                         torch.from_numpy(w))
+    c1, s1 = _plain(adj, w)
+    np.testing.assert_array_equal(c.numpy(), c1)
+    np.testing.assert_array_equal(s.numpy(), s1)
+    with pytest.raises(ValueError):
+        smallsolve.batched_small_mwvc(torch.zeros(2, 20, dtype=torch.int32),
+                                      torch.zeros(2, 20, dtype=torch.int32))
