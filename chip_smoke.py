@@ -58,9 +58,27 @@ non-zero:
                exit fails, and so does a process that scores with the GNN
                without launching K1, or runs a phase 2 without launching K4
                (each prints its own launch counts)
-Then one JSON line of per-kernel numbers, one of the plain-torch device ops
-(``device_ops``: the rule masks, r5 and the 2^16 enumeration, which are not
-hand kernels), and as the last line {"ok": true, "device": {...}}.
+  10. sharded - the multi-device path on the one card, on the road-like
+               graph: (a) partition_device_graph at P = 2 and 4 on cuda:0
+               (seconds, h_max, halo bytes beside a full gather's); one
+               masked sticky-sharded forward of the published model with
+               every shard's K1 output bitwise equal to its rows of the
+               single-device K1 output, scores within 1e-5, 2 x P K1
+               launches, ms beside the single-device forward; (b) solve()
+               at time_limit=0 with ShardedGnnScorer over 4 shards of cuda:0,
+               a valid cover, K1 launched in every mesh round, its cost
+               beside a single-device phase-1 solve's; (c) 2 steps of the
+               sharded train step at P = 4: finite, falling losses, first-step
+               gradients within 1e-4 (of each tensor's largest entry) of the
+               single-device MSE's, K1's backward launched on every shard;
+               (d) two processes in a gloo world on cuda:0 (parallel.dryrun
+               dist, road300): both exit 0, launch K1, and match the
+               single-device forward within 1e-5; (e) gnn-vc-torch --shards 1
+               on road300 as a subprocess, launching K1 and K4
+Then one JSON line of launch counts by path, one of per-kernel numbers, one
+of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
+2^16 enumeration, which are not hand kernels), and as the last line
+{"ok": true, "device": {...}}.
 
 Timing: ``ms``, ``plain_ms`` and ``library_ms`` are eager calls between two
 CUDA events, as a caller that launches call by call pays them (the method of
@@ -807,6 +825,9 @@ LAUNCH_PROBE = (
     " + '\\n')\n")
 
 
+SURFACE_LAUNCHES = {}  # run_surface's launch counts, by what
+
+
 def run_surface(what, target, args, need=(), timeout=300):
     """One port entry point (a module or a script file) as a subprocess of
     this interpreter, from the checkout.  A non-zero exit fails the smoke,
@@ -824,6 +845,7 @@ def run_surface(what, target, args, need=(), timeout=300):
     if not probe:
         fail(f"{what}: no launch counts on stderr\n{out.stderr[-2000:]}")
     launches = json.loads(probe[-1][len("LAUNCHES "):])
+    SURFACE_LAUNCHES[what] = launches
     missing = [k for k in need if launches.get(k, 0) < 1]
     if missing:
         fail(f"{what}: launched no {missing}; launches {launches}")
@@ -934,6 +956,383 @@ def phase_surfaces(seed):
           f"{second}; bench {json.dumps(row)}")
 
 
+SHARD_COUNTS = (2, 4)       # phase 10's shards on the one card
+DIST_SIDE = 300             # phase 10d's road-like graph over 2 gloo ranks
+DIST_TIMEOUT = 300          # seconds for the gloo world to finish
+
+
+def recorded(module, fn):
+    """Run fn with ``module.csr_aggregate`` recording each call: returns
+    fn's result, the outputs and the (args, kwargs) of every call."""
+    kernel = module.csr_aggregate
+    outs, calls = [], []
+
+    def record(*args, **kw):
+        outs.append(kernel(*args, **kw))
+        calls.append((args, kw))
+        return outs[-1]
+
+    module.csr_aggregate = record
+    try:
+        return fn(), outs, calls
+    finally:
+        module.csr_aggregate = kernel
+
+
+def check_block_against_plain(torch, call, out, what):
+    """K1's output on a shard's block against the plain version on the same
+    inputs: within 1e-5 on the card (its index_add_ adds in another order)
+    and bitwise on CPU copies (CSR order, as K1); returns the card's
+    largest |diff|."""
+    from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate_plain
+
+    x, indptr, indices, m = call[:4]
+    want = csr_aggregate_plain(x, indptr, indices, m)
+    err = float((out - want).abs().max())
+    if not torch.allclose(out, want, rtol=1e-5, atol=1e-5):
+        fail(f"{what}: K1 differs from the plain version by {err}")
+    cpu = csr_aggregate_plain(*(None if t is None else t.cpu()
+                                for t in (x, indptr, indices, m)))
+    if not torch.equal(out.cpu(), cpu):
+        fail(f"{what}: K1 not bitwise equal to the CPU plain version (max "
+             f"|diff| {float((out.cpu() - cpu).abs().max())})")
+    return err
+
+
+def phase_sharded_forward(torch, g, rng):
+    """10a: partitions at P = 2 and 4 on cuda:0 and one masked forward each,
+    every shard's K1 output held bitwise against the single-device K1's and
+    against the plain version on its own block."""
+    import numpy as np
+
+    import gnn_mwvc_tpu_torch.models.gnn as gnn_mod
+    import gnn_mwvc_tpu_torch.parallel.sharded as sharded_mod
+    from gnn_mwvc_tpu_torch.graph import DeviceGraph
+    from gnn_mwvc_tpu_torch.models import pretrained_model
+    from gnn_mwvc_tpu_torch.ops import _build
+    from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate
+    from gnn_mwvc_tpu_torch.parallel import (ShardedGraph, gather_scores,
+                                             make_mesh,
+                                             make_sticky_sharded_forward,
+                                             partition_device_graph)
+
+    dg = DeviceGraph.from_graph(g, "cuda")
+    model = pretrained_model("cuda")
+    ws = float(g.weights.max())
+    alive = rng.random(g.n) < 0.7
+    mask = torch.from_numpy(alive.astype(np.float32)).cuda()
+
+    def single():
+        x = (dg.weights / ws * mask).reshape(-1, 1)
+        with torch.no_grad():
+            return model(x, dg, ws, x_is_node_weights=True,
+                         source_mask=mask)[:, 0]
+
+    want, want_aggs, _calls = recorded(gnn_mod, single)
+    single_ms = cuda_ms(single, 10)
+    rows = {}
+    for parts in SHARD_COUNTS:
+        mesh = make_mesh(parts, devices=["cuda:0"] * parts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sg = partition_device_graph(dg, parts, devices=mesh)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t0
+        n_loc = sg.n_loc
+        live = torch.zeros(4, parts * n_loc, device="cuda")
+        live[:, :g.n] = torch.stack([dg.weights, dg.nw, dg.degrees, mask])
+        bufs = list(live.split(n_loc, dim=1))
+        bufs = [b.contiguous() for b in bufs]
+        fwd = make_sticky_sharded_forward(model, mesh)
+        _build.launches.clear()
+        got, aggs, calls = recorded(sharded_mod,
+                                    lambda: fwd(sg, bufs, None, ws))
+        torch.cuda.synchronize()
+        k1 = _build.launches["csr_aggregate"]
+        if k1 != 2 * parts or len(aggs) != 2 * parts:
+            fail(f"sharded forward P={parts}: {k1} K1 launches, want "
+                 f"{2 * parts}")
+        plain_err = 0.0
+        for layer in range(2):
+            for p in range(parts):
+                real = int(sg.shards[p].node_mask.sum())
+                lo = p * n_loc
+                a = aggs[layer * parts + p]
+                if not torch.equal(a[:real], want_aggs[layer][lo:lo + real]):
+                    diff = float((a[:real] - want_aggs[layer][lo:lo + real])
+                                 .abs().max())
+                    fail(f"sharded forward P={parts}: shard {p}'s K1 output "
+                         f"of graph layer {layer + 2} differs from the "
+                         f"single-device K1's rows (max |diff| {diff})")
+                plain_err = max(plain_err, check_block_against_plain(
+                    torch, calls[layer * parts + p][0], a,
+                    f"sharded forward P={parts}, shard {p}, graph layer "
+                    f"{layer + 2}"))
+        scores = torch.from_numpy(gather_scores(sg, got))
+        err = float((scores - want.cpu())[torch.from_numpy(alive)].abs().max())
+        if not bool(torch.isfinite(scores).all()) or err > 1e-5:
+            fail(f"sharded forward P={parts}: scores differ by {err}")
+        ms = cuda_ms(lambda: fwd(sg, bufs, None, ws), 10)
+        # K1 alone on one inner shard's block (graph layer 2's call)
+        x, indptr, indices, m = calls[min(1, parts - 1)][0][:4]
+        block_ms = cuda_ms(
+            lambda: csr_aggregate(x, indptr, indices, m, block=True), 20)
+        block_device_ms = graph_ms(
+            lambda: csr_aggregate(x, indptr, indices, m, block=True), 20)
+        block_bound = hbm_bound_ms(indptr, indices, x, m,
+                                   aggs[min(1, parts - 1)])
+        full = ShardedGraph(n=g.n, n_loc=n_loc, parts=parts, h_max=0,
+                            shards=[]).halo_bytes_per_chip(16)
+        rows[parts] = {"partition_s": part_s, "h_max": sg.h_max,
+                       "halo_bytes": sg.halo_bytes_per_chip(16),
+                       "full_gather_bytes": full, "max_abs_err": err,
+                       "k1_vs_plain_max_abs_err": plain_err,
+                       "ms": ms, "k1_launches": k1, "block_ms": block_ms,
+                       "block_device_ms": block_device_ms,
+                       "block_bound_ms": block_bound,
+                       "block": f"{indptr.numel() - 1} x {x.shape[0]} rows, "
+                                f"{indices.numel()} edges"}
+        print(f"sharded forward P={parts} on cuda:0, n={g.n}, n_loc={n_loc}: "
+              f"partition {part_s:.3f} s, h_max {sg.h_max}, halo "
+              f"{sg.halo_bytes_per_chip(16)} bytes per shard per layer (full "
+              f"gather {full}); every shard's K1 output bitwise equal to its "
+              f"rows of the single-device K1's (2 graph layers), to the CPU "
+              f"plain version on its block, and within {plain_err:.3g} of the "
+              f"plain version on the card (rtol 1e-5, atol 1e-5); scores within "
+              f"{err:.3g} of the single-device forward; {k1} K1 launches; "
+              f"{ms:.4f} ms per sharded forward vs {single_ms:.4f} ms on one "
+              f"device (CUDA events); K1 on shard {min(1, parts - 1)}'s block "
+              f"({rows[parts]['block']}, masked) {block_ms:.4f} ms eager, "
+              f"{block_device_ms:.4f} ms on the device, HBM bound "
+              f"{block_bound:.4f} ms")
+        del sg, bufs, live
+    return {"single_ms": single_ms, "by_parts": rows,
+            "k1_launches": rows[SHARD_COUNTS[-1]]["k1_launches"]}
+
+
+def phase_sharded_solve(torch, g):
+    """10b: solve() at time_limit=0 through ShardedGnnScorer over 4 shards
+    of cuda:0, beside the single-device phase-1 solve."""
+    from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc_tpu_torch.ops import _build
+    from gnn_mwvc_tpu_torch.parallel import make_mesh
+    from gnn_mwvc_tpu_torch.solver import ShardedGnnScorer, solve
+
+    parts = SHARD_COUNTS[-1]
+    scorer = ShardedGnnScorer(mesh=make_mesh(parts, devices=["cuda:0"] * parts))
+    _build.launches.clear()
+    res = solve(g, time_limit=0, scorer=scorer, device="cuda",
+                device_assist=False)
+    launches = dict(_build.launches)
+    if not is_vertex_cover(g, res.solution) or \
+            cover_cost(g, res.solution) != res.cost:
+        fail("sharded solve: the cover is invalid")
+    mesh_rounds = scorer.stats["rounds"]
+    k1 = launches.get("csr_aggregate", 0)
+    if mesh_rounds < 1 or k1 < 2 * parts * mesh_rounds:
+        fail(f"sharded solve: K1 launched {k1} times over {mesh_rounds} mesh "
+             "rounds")
+    one = solve(g, time_limit=0, device="cuda", device_assist=False)
+    p1, q1 = res.phase1, one.phase1
+    print(f"sharded solve P={parts} on cuda:0, time_limit=0: valid cover of "
+          f"cost {res.cost} in {res.time_gnn:.3f} s (reduce "
+          f"{p1['t_reduce0_s']:.3f}, score {p1['t_score_s']:.3f}, peel "
+          f"{p1['t_peel_s']:.3f}), {p1['rounds']} rounds ({mesh_rounds} on the "
+          f"mesh); single-device phase 1: cost {one.cost} in "
+          f"{one.time_gnn:.3f} s (score {q1['t_score_s']:.3f}), {q1['rounds']} "
+          f"rounds; difference {res.cost - one.cost}; launches {launches}; "
+          f"scorer {json.dumps(scorer.stats)}")
+    return launches
+
+
+def phase_sharded_train(torch, g, rng):
+    """10c: 2 sharded train steps at P = 4 on cuda:0; the first step's
+    gradients against the single-device full-batch MSE's."""
+    import numpy as np
+
+    import gnn_mwvc_tpu_torch.parallel.sharded as sharded_mod
+    from gnn_mwvc_tpu_torch.graph import DeviceGraph
+    from gnn_mwvc_tpu_torch.models import pretrained_model
+    from gnn_mwvc_tpu_torch.ops import _build
+    from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate,
+                                                  csr_aggregate_plain)
+    from gnn_mwvc_tpu_torch.parallel import (make_mesh, make_sharded_train_step,
+                                             partition_device_graph)
+
+    parts = SHARD_COUNTS[-1]
+    ws = float(g.weights.max())
+    dg = DeviceGraph.from_graph(g, "cuda")
+    labels = (rng.random(g.n) < 0.5).astype(np.float32)
+    ref = pretrained_model("cuda")
+    out = ref((dg.weights / ws).reshape(-1, 1), dg, ws)[:, 0]
+    ((out - torch.from_numpy(labels).cuda()) ** 2).mean().backward()
+    del out
+    mesh = make_mesh(parts, devices=["cuda:0"] * parts)
+    sg = partition_device_graph(dg, parts, devices=mesh)
+    y = np.zeros(parts * sg.n_loc, np.float32)
+    y[:g.n] = labels
+    y = torch.from_numpy(y.reshape(parts, sg.n_loc)).cuda()
+    model = pretrained_model("cuda")
+    step, _opt = make_sharded_train_step(model, mesh)
+    _build.launches.clear()
+    loss1, _outs, calls = recorded(sharded_mod, lambda: step(sg, y, ws))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    # K1's backward on one inner shard's transposed block (the first call
+    # whose input needs a gradient: graph layer 2's), against the plain
+    # version's autograd on the same inputs
+    shard = min(1, parts - 1)
+    args, kw = next(c for i, c in enumerate(calls)
+                    if i % parts == shard and c[1]["transposed"] is not None)
+    x = args[0].detach()
+    up = torch.from_numpy(rng.standard_normal(
+        (args[1].numel() - 1, x.shape[1])).astype(np.float32)).cuda()
+    grads = []
+    for fn in (lambda v: csr_aggregate(v, *args[1:4], **kw),
+               lambda v: csr_aggregate_plain(v, *args[1:4])):
+        v = x.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(v), v, up)[0])
+    back_err = float((grads[0] - grads[1]).abs().max())
+    if not torch.allclose(grads[0], grads[1], rtol=1e-5, atol=1e-5):
+        fail(f"sharded train step: K1 backward on the transposed block differs "
+             f"from the plain version's autograd by {back_err}")
+    v = x.cpu().requires_grad_()
+    (want,) = torch.autograd.grad(
+        csr_aggregate(v, *(t.cpu() for t in args[1:3]), block=True,
+                      transposed=tuple(t.cpu() for t in kw["transposed"])),
+        v, up.cpu())
+    if not torch.equal(grads[0].cpu(), want):
+        fail("sharded train step: K1 backward on the transposed block not "
+             "bitwise equal to the CPU plain version (max |diff| "
+             f"{float((grads[0].cpu() - want).abs().max())})")
+    block = (f"{x.shape[0]} rows over {args[1].numel() - 1}, "
+             f"{args[2].numel()} edges, w={x.shape[1]}")
+    del x, up, grads, v, want, calls, _outs
+    worst = 0.0
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        scale = float(q.grad.abs().max())
+        rel = float((p.grad - q.grad).abs().max()) / scale if scale else 1.0
+        if not bool(torch.isfinite(p.grad).all()) or rel > 1e-4:
+            fail(f"sharded train step: gradient {name} differs by {rel:.3g} of "
+                 "its largest entry from the single-device MSE's")
+        worst = max(worst, rel)
+    back = launches.get("csr_aggregate_backward", 0)
+    if back != 2 * parts:   # graph layers 2 and 3 on every shard
+        fail(f"sharded train step: K1 backward launched {back} times, want "
+             f"{2 * parts}")
+    loss2 = step(sg, y, ws)
+    if not (np.isfinite(loss1) and np.isfinite(loss2) and loss2 < loss1):
+        fail(f"sharded train step: losses {loss1}, {loss2}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(sg, y, ws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"sharded train step P={parts} on cuda:0, n={g.n}: losses {loss1:.6f}, "
+          f"{loss2:.6f}; first-step gradients within {worst:.3g} of each "
+          f"tensor's largest entry of the single-device MSE's (limit 1e-4); "
+          f"K1 backward on shard {shard}'s transposed block "
+          f"({block}) within {back_err:.3g} of the plain version's autograd "
+          f"on the card (rtol 1e-5, atol 1e-5) and bitwise equal to the CPU "
+          f"plain version; launches per step {launches}; {ms:.4f} ms per step "
+          "(host clock after a synchronise)")
+    return launches
+
+
+def phase_sharded_dist():
+    """10d: two processes, one shard each, in a gloo world on cuda:0."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gnn_mwvc_tpu_torch.parallel.dryrun", "dist",
+         str(rank), "2", init, "--backend", "gloo", "--device", "cuda:0",
+         "--road", str(DIST_SIDE)],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        fail(f"gloo world: a rank did not finish in {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"gloo world: rank {rank} exit {p.returncode}\n{out[-2000:]}\n"
+                 f"{err[-3000:]}")
+        r = json.loads(out.strip().splitlines()[-1])
+        if not r["ok"] or r["max_abs_err"] > 1e-5 or \
+                r["launches"].get("csr_aggregate", 0) < 1:
+            fail(f"gloo world: rank {rank}: {r}")
+        results.append(r)
+    for r in results:
+        print(f"gloo rank {r['rank']} of 2 on {r['device']} ({r['transport']}), "
+              f"road{DIST_SIDE} n={r['n']}, n_loc {r['n_loc']}, h_max "
+              f"{r['h_max']}: exit 0, within {r['max_abs_err']:.3g} of the "
+              f"single-device forward; {r['forward_ms']:.4f} ms per forward "
+              f"(host clock); train step loss {r['loss']:.6f}; launches "
+              f"{r['launches']}")
+    print("not exercised: NCCL (it refuses two ranks on one GPU) and copies "
+          "between cards (the machine has one card)")
+    return results
+
+
+def phase_shards_cli(seed):
+    """10e: gnn-vc-torch --shards 1 on the road-like side-300 instance."""
+    import tempfile
+
+    from gnn_mwvc_tpu_torch.graph import build_road_graph
+    from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
+                                            read_solution, write_metis)
+
+    g = build_road_graph(SURFACE_SIDE, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="mwvc_shards_") as tmp:
+        path = os.path.join(tmp, f"road{SURFACE_SIDE}.metis")
+        sol = os.path.join(tmp, f"road{SURFACE_SIDE}.sol")
+        write_metis(path, g)
+        run_surface("gnn-vc-torch --shards 1", "gnn_mwvc_tpu_torch.solver.cli",
+                    [path, sol, SURFACE_TIME, "-1", "0", "--shards", "1"],
+                    need=("csr_aggregate", "small_mwvc_mitm"))
+        cover = read_solution(sol)
+    if not is_vertex_cover(g, cover):
+        fail("gnn-vc-torch --shards 1: the written cover is invalid")
+    print(f"gnn-vc-torch --shards 1: valid cover of cost {cover_cost(g, cover)}")
+    return SURFACE_LAUNCHES["gnn-vc-torch --shards 1"]
+
+
+def phase_sharded(torch, g, seed):
+    """Phase 10; returns the launch counts of its paths."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    fwd = phase_sharded_forward(torch, g, rng)
+    torch.cuda.empty_cache()
+    solve_launches = phase_sharded_solve(torch, g)
+    torch.cuda.empty_cache()
+    train_launches = phase_sharded_train(torch, g, rng)
+    torch.cuda.empty_cache()
+    dist = phase_sharded_dist()
+    cli = phase_shards_cli(seed)
+    print(f"phase 10: {time.perf_counter() - t0:.3f} s")
+    return {"sharded_forward": {"csr_aggregate": fwd["k1_launches"]},
+            "sharded_solve": solve_launches,
+            "sharded_train_step": train_launches,
+            "gloo_forward": {"csr_aggregate": sum(
+                r["launches"].get("csr_aggregate", 0) for r in dist)},
+            "shards_1_cli": cli}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", type=float, default=150.0,
@@ -1012,13 +1411,18 @@ def main():
     if args.side != ROAD_SIDE:
         g = build_road_graph(ROAD_SIDE)
     device_ops = phase_prepass(torch, g, int_ops_per_s) + [enum_op]
-    del g
 
     # 9. the remaining single-device surfaces
     phase_surfaces(args.seed)
 
+    # 10. the multi-device path on the one card
+    by_path = phase_sharded(torch, g, args.seed)
+    del g
+
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
+    by_path = {"solve": launches, "train": train_launches, **by_path}
+    print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",
          "source": "gnn_mwvc_tpu_torch/csrc/csr_aggregate.cu",

@@ -83,6 +83,8 @@ _SIGNATURES = {
                            ct.c_uint32),
     "mwvc_node_range": ([_c, ct.c_uint32, ct.c_uint32, u8p, u64p, u32p],
                         None),
+    "mwvc_node_arrays": ([_c, u8p, u64p, u64p, u32p], None),
+    "mwvc_live_edges": ([_c], ct.c_uint64),
     "mwvc_ls_create": ([ct.c_uint32, u32p, ct.c_uint32, u32p, u32p, u8p], _c),
     "mwvc_ls_destroy": ([_c], None),
     "mwvc_ls_search": ([_c, ct.c_uint32, ct.c_double], ct.c_int),
@@ -300,6 +302,21 @@ class CoreSolver:
         if k:
             self._lib.mwvc_node_range(self._h, lo, hi, act, w, deg)
         return act, w, deg
+
+    def node_arrays(self):
+        """Live (active, w, nw, deg) over the whole node-id space [0, size):
+        an O(n) flat copy, no CSR walk and no compaction."""
+        n = self.n_nodes
+        active = np.empty(n, np.uint8)
+        w = np.empty(n, np.uint64)   # u64: twin folds sum weights past 2^32
+        nw = np.empty(n, np.uint64)
+        deg = np.empty(n, np.uint32)
+        self._lib.mwvc_node_arrays(self._h, active, w, nw, deg)
+        return active, w, nw, deg
+
+    def live_edges(self) -> int:
+        """Directed live-edge count (the sum of active degrees), O(n)."""
+        return int(self._lib.mwvc_live_edges(self._h))
 
     def solve_small_components(self, limit=75):
         return int(self._lib.mwvc_solve_small_components(self._h, limit))

@@ -10,9 +10,10 @@ best]``; when the graph reduces fully or no local search ran:
 Options: ``--device`` (default cuda; cuda without a GPU is an error),
 ``--device-assist/--no-device-assist`` (default: on for CUDA), ``--quick``
 (no GNN: the weight/degree priority of the reference's QUICK_VC), ``--model``
-(a model file in the reference text format), ``--json``.  ``--shards N`` (the
-JAX package's multi-device scoring) is refused for N > 0: that path is not
-ported yet.
+(a model file in the reference text format), ``--json``, ``--shards N``
+(phase 1 scored over N shards, ``ShardedGnnScorer``: one per CUDA card from
+``cuda:0``, or N on the host with ``--device cpu``; the phase-2 assist stays
+on ``--device``; not with ``--quick``).
 """
 
 from __future__ import annotations
@@ -43,11 +44,29 @@ def main(argv=None):
                     help="model file in the reference text format")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--shards", type=int, default=0,
-                    help="multi-device scoring: not ported yet, only 0")
+                    help="score phase 1 over N shards (the edge-partitioned "
+                         "halo-exchange forward): N CUDA cards, or N shards "
+                         "on the host with --device cpu; 0 = one device")
     args = ap.parse_args(argv)
+    mesh = None
     if args.shards:
-        ap.error("--shards: multi-device scoring is not ported to this "
-                 "package yet; run on one device (--shards 0)")
+        import torch
+
+        from gnn_mwvc_tpu_torch.parallel import make_mesh
+
+        if args.quick:
+            ap.error("--shards scores phase 1 with the GNN; --quick has none")
+        dev = torch.device(args.device)
+        host = dev.type == "cpu"
+        if not host and dev.index not in (None, 0):
+            ap.error(f"--shards {args.shards} takes cuda:0..{args.shards - 1}"
+                     f"; --device {args.device} would put the phase-2 assist "
+                     "elsewhere")
+        try:
+            mesh = make_mesh(args.shards, devices=[args.device] * args.shards
+                             if host else None)
+        except RuntimeError as e:
+            ap.error(f"--shards {args.shards}: {e}")
 
     from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
                                             read_metis, write_solution)
@@ -69,9 +88,16 @@ def main(argv=None):
         print(f"{name}, N = {g.n}, E = {g.m}")
 
     model = MWVCModel.from_spec(load_model(args.model)) if args.model else None
+    scorer = None
+    if args.quick:
+        scorer = QuickScorer()
+    elif mesh is not None:
+        from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
+
+        scorer = ShardedGnnScorer(model, mesh=mesh)
     res = solve(g, model=model, time_limit=args.time,
                 relable_interval=args.k, verbose=verbose, device=args.device,
-                scorer=QuickScorer() if args.quick else None,
+                scorer=scorer,
                 device_assist=("auto" if args.device_assist is None
                                else args.device_assist))
 

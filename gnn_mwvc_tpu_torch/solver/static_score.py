@@ -98,15 +98,9 @@ class StickyGnnScorer:
                 torch.from_numpy(vals[:, :cnt]).to(self.device))
             self.stats["deltas"] += cnt
 
-    @torch.no_grad()
-    def score_core(self, core, weight_scale: float):
-        t0 = time.perf_counter()
-        if self._needs_rebuild(core):
-            self._rebuild(core)
-        dg, ids, built_size, _ba = self._state
-        self._refresh(core)
-        t1 = time.perf_counter()
-
+    def _forward(self, weight_scale: float) -> np.ndarray:
+        """The masked forward over the live state: (built n,) scores."""
+        dg = self._state[0]
         live = self._live
         mask = live[3]
         dg_live = dataclasses.replace(dg, weights=live[0], nw=live[1],
@@ -114,7 +108,17 @@ class StickyGnnScorer:
         x = (live[0] / weight_scale * mask).reshape(-1, 1)
         out = self.model(x, dg_live, weight_scale, compat=self.compat,
                          x_is_node_weights=True, source_mask=mask)
-        prob = out[:, 0].cpu().numpy()
+        return out[:, 0].cpu().numpy()
+
+    @torch.no_grad()
+    def score_core(self, core, weight_scale: float):
+        t0 = time.perf_counter()
+        if self._needs_rebuild(core):
+            self._rebuild(core)
+        _dg, ids, built_size, _ba = self._state
+        self._refresh(core)
+        t1 = time.perf_counter()
+        prob = self._forward(weight_scale)
         t2 = time.perf_counter()
 
         w_r, _nw_r, deg_r, act8 = self._prev

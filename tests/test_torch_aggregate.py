@@ -13,7 +13,8 @@ import torch
 from gnn_mwvc_tpu.graph import DeviceGraph as JaxDeviceGraph
 from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
 from gnn_mwvc_tpu_torch.ops import _build
-from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_aggregate_plain
+from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate, csr_aggregate_plain,
+                                              csr_transpose)
 from tests.conftest import random_graph
 
 
@@ -66,7 +67,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "indptr_dtype", "mask_shape",
-                                 "width", "noncontiguous"])
+                                 "width", "noncontiguous",
+                                 "indptr_length"])
 def test_rejects_bad_inputs(bad):
     gj = random_graph(40, 4, seed=3)
     dg = DeviceGraph.from_graph(Graph(gj.weights, gj.edge_array()), "cpu")
@@ -79,6 +81,8 @@ def test_rejects_bad_inputs(bad):
         mask = torch.ones(39)
     elif bad == "width":
         x = torch.ones(40, 65)
+    elif bad == "indptr_length":
+        indptr = indptr[:-1].contiguous()
     else:
         x = torch.ones(16, 40).t()
     with pytest.raises(ValueError):
@@ -91,3 +95,72 @@ def test_device_graph_rejects_a_bad_csr():
         DeviceGraph.build(w, np.array([0, 1, 2, 2]), np.array([1, 3]), "cpu")
     with pytest.raises(ValueError):
         DeviceGraph.build(w, np.array([0, 1, 2]), np.array([1, 0]), "cpu")
+
+
+def _block(rng, n_out, n_src, deg):
+    """A random CSR block: n_out rows over n_src sources, not symmetric."""
+    counts = rng.integers(0, 2 * deg + 1, size=n_out)
+    indptr = np.zeros(n_out + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = rng.integers(0, n_src, size=int(indptr[-1]))
+    return (torch.from_numpy(indptr.astype(np.int32)),
+            torch.from_numpy(indices.astype(np.int32)))
+
+
+def _direct(x, indptr, indices, mask):
+    """The neighbour sum written directly: gather, mask, index_add_."""
+    rows = torch.repeat_interleave(torch.arange(indptr.numel() - 1),
+                                   (indptr[1:] - indptr[:-1]).long())
+    src = x[indices.long()]
+    if mask is not None:
+        src = src * mask[indices.long(), None]
+    return torch.zeros(indptr.numel() - 1, x.shape[1]).index_add_(0, rows, src)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_out,n_src", [(120, 300), (200, 200), (300, 90)])
+def test_block_forward_and_gradient_match_direct(n_out, n_src, masked):
+    """A rectangular (or square, non-symmetric) block: the forward, and the
+    x-gradient through the block's transposed CSR, equal autograd through
+    the direct formulation.  The symmetric shortcut (the block itself in
+    place of its transpose) fails here: wrong shape or wrong sums."""
+    rng = np.random.default_rng(n_out * 7 + n_src)
+    indptr, indices = _block(rng, n_out, n_src, 5)
+    x = torch.from_numpy(rng.standard_normal((n_src, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_out, 16)).astype(np.float32))
+    mask = (torch.from_numpy((rng.random(n_src) < 0.6).astype(np.float32))
+            if masked else None)
+    t = csr_transpose(indptr, indices, n_src)
+    assert t[0].dtype == t[1].dtype == torch.int32
+    assert t[0].shape == (n_src + 1,) and t[1].shape == indices.shape
+    xa = x.clone().requires_grad_()
+    xb = x.clone().requires_grad_()
+    got = csr_aggregate(xa, indptr, indices, mask, transposed=t)
+    want = _direct(xb, indptr, indices, mask)
+    assert torch.equal(got, want)
+    (ga,) = torch.autograd.grad(got, xa, g)
+    (gb,) = torch.autograd.grad(want, xb, g)
+    torch.testing.assert_close(ga, gb, rtol=1e-6, atol=1e-6)
+    if n_out == n_src:   # the shortcut runs, and is wrong on this block
+        xc = x.clone().requires_grad_()
+        (gc,) = torch.autograd.grad(
+            csr_aggregate(xc, indptr, indices, mask), xc, g)
+        assert not torch.allclose(gc, gb, atol=1e-3)
+
+
+def test_rectangular_block_gradient_needs_its_transpose():
+    rng = np.random.default_rng(5)
+    indptr, indices = _block(rng, 50, 80, 3)
+    x = torch.ones(80, 16)
+    assert csr_aggregate(x, indptr, indices, block=True).shape == (50, 16)
+    with pytest.raises(ValueError, match="transposed"):
+        csr_aggregate(x.requires_grad_(), indptr, indices, block=True)
+    with pytest.raises(ValueError, match="block=True"):
+        csr_aggregate(x.detach(), indptr, indices)   # not square: a block
+
+
+def test_transpose_of_a_symmetric_csr_is_itself():
+    gj = random_graph(150, 6, seed=8)
+    dg = DeviceGraph.from_graph(Graph(gj.weights, gj.edge_array()), "cpu")
+    t_indptr, t_indices = csr_transpose(dg.indptr, dg.indices, dg.n)
+    assert torch.equal(t_indptr, dg.indptr) and torch.equal(t_indices, dg.indices)

@@ -187,3 +187,26 @@ def test_constructions_and_dscores_equal_jax(name):
     inc = ours.dscores().copy()
     ours.rebuild_scores()
     np.testing.assert_array_equal(inc, ours.dscores())
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_node_arrays_and_live_edges_equal_jax(name):
+    gj = GRAPHS[name]()
+    ours, ref = _pair(gj)
+    rng = np.random.default_rng(7)
+    for stage in range(3):
+        assert ours.live_edges() == ref.live_edges()
+        for a, b in zip(ours.node_arrays(), ref.node_arrays()):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        if stage == 0:
+            ours.reduce()
+            ref.reduce()
+        else:
+            live = [u for u in range(ours.n_nodes) if ours.is_active(u)]
+            for u in rng.choice(live, size=min(5, len(live)), replace=False):
+                if ours.is_active(int(u)):
+                    ours.select_node(int(u))
+                    ref.select_node(int(u))
+    act, _w, _nw, deg = ours.node_arrays()
+    assert ours.live_edges() == int(deg[act.astype(bool)].sum())

@@ -285,3 +285,72 @@ def test_enumeration_on_cuda_equals_k4(cuda):
     c1, s1 = small_mwvc_mitm(d_adj, d_w)
     assert c0.device.type == "cuda"
     assert torch.equal(c0, c1) and torch.equal(s0, s1)
+
+
+def _cuda_block(rng, n_out, n_src):
+    counts = rng.integers(0, 11, size=n_out)
+    counts[3] = 200                                     # one long row
+    indptr = np.zeros(n_out + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = rng.integers(0, n_src, size=int(indptr[-1]))
+    return (torch.from_numpy(indptr.astype(np.int32)),
+            torch.from_numpy(indices.astype(np.int32)))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_out,n_src", [(700, 2500), (2500, 700)])
+def test_k1_block_and_its_backward_bitwise_equal_cpu(cuda, n_out, n_src,
+                                                     masked):
+    """K1 on a rectangular block, and its backward on the block's transposed
+    CSR, bitwise equal to the plain version's on CPU copies."""
+    from gnn_mwvc_tpu_torch.ops.aggregate import csr_transpose
+
+    rng = np.random.default_rng(n_out + n_src)
+    indptr, indices = _cuda_block(rng, n_out, n_src)
+    x = torch.from_numpy(rng.standard_normal((n_src, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_out, 16)).astype(np.float32))
+    mask = (torch.from_numpy((rng.random(n_src) < 0.7).astype(np.float32))
+            if masked else None)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        ptr, idx = indptr.to(dev), indices.to(dev)
+        t = csr_transpose(ptr, idx, n_src)
+        xd = x.to(dev).requires_grad_()
+        before = _build.launches["csr_aggregate_backward"]
+        out = csr_aggregate(xd, ptr, idx, None if mask is None else mask.to(dev),
+                            transposed=t)
+        (gx,) = torch.autograd.grad(out, xd, g.to(dev))
+        launched = _build.launches["csr_aggregate_backward"] - before
+        assert launched == (1 if dev.type == "cuda" else 0)
+        runs.append((out.detach().cpu(), gx.cpu(), [a.cpu() for a in t]))
+    assert torch.equal(runs[0][2][0], runs[1][2][0])
+    assert torch.equal(runs[0][2][1], runs[1][2][1])
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_sharded_forward_on_four_shards_of_one_card(cuda):
+    """Four shards on cuda:0: every K1 output bitwise equal to the CPU's,
+    2 x 4 K1 launches per forward, scores within 1e-6 of one device's."""
+    from gnn_mwvc_tpu_torch.models import pretrained_model, score_graph
+    from gnn_mwvc_tpu_torch.parallel import (gather_scores, make_mesh,
+                                             make_sharded_forward,
+                                             partition_device_graph)
+
+    g = build_road_graph(150)
+    ws = float(g.weights.max())
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_mesh(4, devices=[dev] * 4)
+        sg = partition_device_graph(DeviceGraph.from_graph(g, dev), 4,
+                                    devices=mesh)
+        fwd = make_sharded_forward(pretrained_model(dev), mesh, masked=True,
+                                   x_is_node_weights=True)
+        before = _build.launches["csr_aggregate"]
+        outs[dev] = gather_scores(sg, fwd(sg, ws))
+        assert _build.launches["csr_aggregate"] - before == (
+            8 if dev != "cpu" else 0)
+    single = score_graph(pretrained_model(cuda), DeviceGraph.from_graph(g, cuda),
+                         ws).cpu().numpy()
+    np.testing.assert_allclose(outs["cuda:0"], single, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(outs["cuda:0"], outs["cpu"], atol=1e-6, rtol=0)

@@ -108,6 +108,12 @@ def test_port_imports_no_jax():
         "assert solve(g, time_limit=0, scorer=QuickScorer(),\n"
         "             device='cpu').cost == 20\n"
         "gnn_mwvc_tpu_torch.solver.ablation.run_ablation(g, device='cpu')\n"
+        "import gnn_mwvc_tpu_torch.parallel, gnn_mwvc_tpu_torch.parallel.dryrun\n"
+        "from gnn_mwvc_tpu_torch.parallel import make_mesh\n"
+        "from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer\n"
+        "mesh = make_mesh(2, devices=['cpu', 'cpu'])\n"
+        "assert solve(g, time_limit=0, scorer=ShardedGnnScorer(mesh=mesh),\n"
+        "             device='cpu').cost == 20\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.')]\n"

@@ -96,13 +96,20 @@ def test_cli_quick_contract_and_cost(tmp_path):
     assert int(fields[6]) == ref.cost
 
 
-def test_cli_refuses_shards(tmp_path):
+def test_cli_refuses_shards(tmp_path, capsys):
+    """--shards N on CUDA with fewer than N cards exits 2, naming both
+    counts, before it reads the graph."""
+    import torch
+
     from gnn_mwvc_tpu_torch.solver import cli
 
+    n = torch.cuda.device_count() + 1
     with pytest.raises(SystemExit) as e:
         cli.main([str(tmp_path / "g.metis"), str(tmp_path / "g.sol"), "1",
-                  "--shards", "2", "--device", "cpu"])
+                  "--shards", str(n)])
     assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{n} shards" in err and f"found {n - 1}" in err
 
 
 # -- approximation and ablation ---------------------------------------------
