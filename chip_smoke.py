@@ -75,6 +75,20 @@ non-zero:
                dist, road300): both exit 0, launch K1, and match the
                single-device forward within 1e-5; (e) gnn-vc-torch --shards 1
                on road300 as a subprocess, launching K1 and K4
+  11. tools  - every port tool (gnn_mwvc_tpu_torch/tools/) in a subprocess on
+               the card ((a) and (b) one each, (c)-(g) one together, each
+               tool's launches counted from 0): (a) dump_kernel on the
+               road-like graph, launching
+               K1; (b) assist_ab on that kernel, the four phase-2 variants at
+               10 s each, K4 launched by the region variants and only by
+               them, none worse than the dumped cover; (c) canonical on
+               road300 for 5 s, its CSV line, K1 and K4 launched;
+               (d) sharded_solve on road300 at P = 4: identical covers;
+               (e) er_slice_bench on ER n = 200,000, degree 16, P = 1 and 4:
+               K1's device ms beside its HBM bound and torch.sparse.mm, K1
+               within 1e-4 of its plain version; (f) scale_bench and
+               scaling_weak: sharded scores within 1e-5 of one device's;
+               (g) reduce_scale at side 450: both kernel sizes and times
 Then one JSON line of launch counts by path, one of per-kernel numbers, one
 of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
 2^16 enumeration, which are not hand kernels), and as the last line
@@ -102,7 +116,6 @@ ROAD_SIDE = 1200  # 1,440,000 nodes: the road1200 workload
 TRAIN_SIDE = 400
 TRAIN_GRAPHS = 8
 TRAIN_MIN_VERTICES = 1_000_000
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 64 INT32 lanes a clock
 SURFACE_SIDE = 300          # phase 9's road-like instance (90,000 nodes)
 SURFACE_TIME = 5.0          # phase 9's per-run budget, seconds; phase 1
@@ -137,41 +150,6 @@ def eager_times(fn, iters):
 def cuda_ms(fn, iters):
     """Mean milliseconds per eager call, timed with CUDA events."""
     return eager_times(fn, iters)[0]
-
-
-def graph_ms(fn, iters):
-    """Mean device milliseconds per call of ``iters`` back-to-back calls
-    captured in one CUDA graph: the device's time without the host's
-    launch cost, which exceeds a short kernel's run."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def hbm_bytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def hbm_bound_ms(*tensors):
-    """Least time to read the inputs once and write the output once."""
-    return hbm_bytes(*tensors) / HBM_BYTES_PER_S * 1e3
 
 
 def k4_ops(b, n):
@@ -231,6 +209,7 @@ def check_k4(torch, adj, w, what):
 def time_k4(torch, adj, w, plain_iters):
     from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import (
         small_mwvc_mitm, small_mwvc_mitm_plain)
+    from gnn_mwvc_tpu_torch.tools._common import graph_ms
 
     ms = cuda_ms(lambda: small_mwvc_mitm(adj, w), 20)
     device_ms = graph_ms(lambda: small_mwvc_mitm(adj, w), 20)
@@ -251,6 +230,7 @@ def phase_enumeration(torch, adj, w, int_ops_per_s):
     card: bitwise equal to K4; its device-op numbers."""
     from gnn_mwvc_tpu_torch.ops.smallsolve import batched_small_mwvc
     from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
+    from gnn_mwvc_tpu_torch.tools._common import HBM_BYTES_PER_S, hbm_bytes
 
     c0, s0 = batched_small_mwvc(adj, w)
     c1, s1 = small_mwvc_mitm(adj, w)
@@ -303,6 +283,7 @@ def phase_k1(torch, dg, rng):
 
     from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate,
                                                   csr_aggregate_plain)
+    from gnn_mwvc_tpu_torch.tools._common import graph_ms, hbm_bound_ms
 
     n = dg.n
     nnz = dg.indices.numel()
@@ -422,6 +403,7 @@ def phase_backward(torch, dg, rng, seed):
                                            init_params)
     from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate,
                                                   csr_aggregate_plain)
+    from gnn_mwvc_tpu_torch.tools._common import graph_ms, hbm_bound_ms
     from gnn_mwvc_tpu_torch.train import TrainSample, loss_and_metrics
     from gnn_mwvc_tpu_torch.train.trainer import WEIGHT_SCALE
 
@@ -698,6 +680,7 @@ def phase_prepass(torch, g, int_ops_per_s):
     from gnn_mwvc_tpu_torch.solver.device_reduce import device_reduce_prepass
     from gnn_mwvc_tpu_torch.solver.pipeline import gnn_peel
     from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+    from gnn_mwvc_tpu_torch.tools._common import HBM_BYTES_PER_S, hbm_bytes
 
     core = CoreSolver(g.weights, g.edge_array())
     snap = core.snapshot()          # the snapshot the prepass starts from
@@ -809,49 +792,79 @@ def phase_prepass(torch, g, int_ops_per_s):
     ]
 
 
-# Runs a module (``-m``) or a script file as ``__main__`` and, however it
-# ends, writes the kernel launch counts of its process to stderr.
+SURFACE_LAUNCHES = {}  # run_surfaces' launch counts, by what
+
+# Runs entry points as ``__main__`` in one process, one after the other:
+# argv[1] is a JSON list of [what, target, args], the target a module or a
+# script file (``.py``).  Each starts with the launch counts at 0, prints
+# "=== what" to stdout first and, however it ends, writes its counts to
+# stderr; a non-zero exit ends the process with it.
 LAUNCH_PROBE = (
     "import json, runpy, sys\n"
     "from gnn_mwvc_tpu_torch.ops import _build\n"
-    "target, sys.argv = sys.argv[1], sys.argv[1:]\n"
-    "try:\n"
-    "    if target.endswith('.py'):\n"
-    "        runpy.run_path(target, run_name='__main__')\n"
-    "    else:\n"
-    "        runpy.run_module(target, run_name='__main__', alter_sys=True)\n"
-    "finally:\n"
-    "    sys.stderr.write('\\nLAUNCHES ' + json.dumps(dict(_build.launches))"
-    " + '\\n')\n")
+    "for what, target, args in json.loads(sys.argv[1]):\n"
+    "    _build.launches.clear()\n"
+    "    print('=== ' + what, flush=True)\n"
+    "    sys.argv = [target, *args]\n"
+    "    try:\n"
+    "        if target.endswith('.py'):\n"
+    "            runpy.run_path(target, run_name='__main__')\n"
+    "        else:\n"
+    "            runpy.run_module(target, run_name='__main__', alter_sys=True)\n"
+    "    except SystemExit as e:\n"
+    "        if e.code not in (0, None):\n"
+    "            raise\n"
+    "    finally:\n"
+    "        sys.stdout.flush()\n"
+    "        sys.stderr.write('\\nLAUNCHES ' + json.dumps(\n"
+    "            [what, dict(_build.launches)]) + '\\n')\n")
 
 
-SURFACE_LAUNCHES = {}  # run_surface's launch counts, by what
-
-
-def run_surface(what, target, args, need=(), timeout=300):
-    """One port entry point (a module or a script file) as a subprocess of
-    this interpreter, from the checkout.  A non-zero exit fails the smoke,
-    and so does a kernel of ``need`` that the process never launched.
-    Returns its stdout."""
+def run_surfaces(runs, timeout=600):
+    """Port entry points ``(what, target, args, need)``, a module or a
+    script file each, in one subprocess of this interpreter from the
+    checkout, which saves each one's start-up (~10 s on the card's
+    machine).  A non-zero exit fails the smoke, and so does a kernel of
+    ``need`` that an entry point never launched.  Returns each one's
+    stdout, by what."""
     t0 = time.perf_counter()
+    spec = [[what, target, [str(a) for a in args]]
+            for what, target, args, _need in runs]
     out = subprocess.run(
-        [sys.executable, "-c", LAUNCH_PROBE, target, *map(str, args)],
+        [sys.executable, "-c", LAUNCH_PROBE, json.dumps(spec)],
         capture_output=True, text=True, timeout=timeout, cwd=HERE,
         env=dict(os.environ, PYTHONPATH=HERE))
     if out.returncode != 0:
-        fail(f"{what}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
-             f"{out.stderr[-3000:]}")
-    probe = [ln for ln in out.stderr.splitlines() if ln.startswith("LAUNCHES ")]
-    if not probe:
-        fail(f"{what}: no launch counts on stderr\n{out.stderr[-2000:]}")
-    launches = json.loads(probe[-1][len("LAUNCHES "):])
-    SURFACE_LAUNCHES[what] = launches
-    missing = [k for k in need if launches.get(k, 0) < 1]
-    if missing:
-        fail(f"{what}: launched no {missing}; launches {launches}")
-    print(f"surface {what}: exit 0 in {time.perf_counter() - t0:.3f} s; "
-          f"launches {launches}; {out.stdout.strip().splitlines()[-1][:300]}")
-    return out.stdout
+        fail(f"{[r[0] for r in runs]}: exit {out.returncode}\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    texts, what = {}, None
+    for ln in out.stdout.splitlines(keepends=True):
+        if ln.startswith("=== "):
+            what = ln[4:].strip()
+            texts[what] = ""
+        elif what is not None:
+            texts[what] += ln
+    for ln in out.stderr.splitlines():
+        if ln.startswith("LAUNCHES "):
+            what, counts = json.loads(ln[len("LAUNCHES "):])
+            SURFACE_LAUNCHES[what] = counts
+    for what, _target, _args, need in runs:
+        launches = SURFACE_LAUNCHES.get(what)
+        if launches is None or what not in texts:
+            fail(f"{what}: no output or launch counts\n{out.stderr[-2000:]}")
+        missing = [k for k in need if launches.get(k, 0) < 1]
+        if missing:
+            fail(f"{what}: launched no {missing}; launches {launches}")
+        last = (texts[what].strip().splitlines() or [""])[-1]
+        print(f"surface {what}: exit 0; launches {launches}; {last[:300]}")
+    print(f"surfaces {[r[0] for r in runs]}: one process, "
+          f"{time.perf_counter() - t0:.3f} s")
+    return texts
+
+
+def run_surface(what, target, args, need=(), timeout=300):
+    """One entry point in a subprocess of its own; returns its stdout."""
+    return run_surfaces([(what, target, args, need)], timeout)[what]
 
 
 def phase_surfaces(seed):
@@ -1015,6 +1028,7 @@ def phase_sharded_forward(torch, g, rng):
                                              make_mesh,
                                              make_sticky_sharded_forward,
                                              partition_device_graph)
+    from gnn_mwvc_tpu_torch.tools._common import graph_ms, hbm_bound_ms
 
     dg = DeviceGraph.from_graph(g, "cuda")
     model = pretrained_model("cuda")
@@ -1333,6 +1347,145 @@ def phase_sharded(torch, g, seed):
             "shards_1_cli": cli}
 
 
+TOOLS_AB_TIME = 10.0        # phase 11b's budget per A/B variant, seconds
+TOOLS_CANONICAL = "road300"  # phase 11c's instance (90,000 nodes)
+TOOLS_CANONICAL_TIME = 5.0
+TOOLS_ER_N = 200_000        # phase 11e's ER graph: n at degree 16
+TOOLS_SCALE_N = 50_000      # phase 11f's random graph for scale_bench
+TOOLS_SCALE_SIDE = 200      # phase 11f's road-like graph for scaling_weak
+TOOLS_REDUCE_SIDE = 450     # phase 11g's road-like graph (202,500 nodes)
+
+
+def json_lines(text):
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def phase_tools(side):
+    """Phase 11: every port tool as a subprocess on the card.  Returns the
+    launch counts of each run, by tool."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    k1, k4 = "csr_aggregate", "small_mwvc_mitm"
+    mod = "gnn_mwvc_tpu_torch.tools."
+    with tempfile.TemporaryDirectory(prefix="mwvc_tools_") as tmp:
+        def out(name):
+            return ["--out", os.path.join(tmp, name)]
+
+        # (a) the phase-1 kernel of the full road-like graph
+        npz = os.path.join(tmp, f"kernel_road{side}.npz")
+        (dump,) = json_lines(run_surface(
+            "dump_kernel", mod + "dump_kernel", [f"road{side}", "--out", npz],
+            need=(k1,)))
+        print(f"dump_kernel road{side}: kernel n={dump['n']} m={dump['m']} "
+              f"initial_cost={dump['initial_cost']} cover cost "
+              f"{dump['cover_cost']}, gnn_peel {dump['t_gnn_peel']:.3f} s "
+              f"({json.dumps(dump['phase1'])}), t_phase1 {dump['t_phase1']:.3f} s")
+
+        # (b) the four phase-2 variants at equal budget from that kernel
+        rows = json_lines(run_surface(
+            "assist_ab", mod + "assist_ab",
+            [npz, "--time", TOOLS_AB_TIME, "--seeds", "1", *out("ab.json")],
+            need=(k4,)))
+        if [r["variant"] for r in rows] != ["plain", "guided", "regions",
+                                             "full"]:
+            fail(f"assist_ab: rows {rows}")
+        for r in rows:
+            n_k4 = r["launches"].get(k4, 0)
+            region = r["variant"] in ("regions", "full")
+            if (n_k4 > 0) != region or r["total_with_init"] > dump["cover_cost"]:
+                fail(f"assist_ab {r['variant']}: K4 launched {n_k4} times, "
+                     f"total {r['total_with_init']}: {r}")
+            st = r["assist"] or {}
+            print(f"assist_ab {r['variant']} ({TOOLS_AB_TIME:g} s, seed 1): "
+                  f"total_with_init {r['total_with_init']}, best_seen "
+                  f"{r['best_seen'] + dump['initial_cost']}, steps "
+                  f"{r['steps']}, kicks {r['kicks']}, t_best {r['t_best']}; "
+                  f"K4 launches {n_k4}, batches {st.get('batches')}, patches "
+                  f"{st.get('patches')}, gain {st.get('gain')}, t_host_s "
+                  f"{st.get('t_host_s')}, t_device_s {st.get('t_device_s')}")
+
+        # (c)-(g) share one process
+        texts = run_surfaces([
+            ("canonical", mod + "canonical",
+             [TOOLS_CANONICAL, "--time", TOOLS_CANONICAL_TIME,
+              *out("canonical.json")], (k1, k4)),
+            ("sharded_solve", mod + "sharded_solve",
+             [TOOLS_CANONICAL, "--parts", 4, *out("sharded.json")], (k1,)),
+            ("er_slice_bench", mod + "er_slice_bench",
+             ["--n", TOOLS_ER_N, "--deg", 16, "--parts", "1,4",
+              *out("er.json")], (k1,)),
+            ("scale_bench", mod + "scale_bench",
+             ["--n", TOOLS_SCALE_N, "--deg", 12, "--parts", "1,2,4"], (k1,)),
+            ("scaling_weak", mod + "scaling_weak",
+             ["--side", TOOLS_SCALE_SIDE, "--er-n", TOOLS_SCALE_N,
+              "--parts", "1,2,4", *out("weak.json")], (k1,)),
+            ("reduce_scale", mod + "reduce_scale",
+             ["--side", TOOLS_REDUCE_SIDE, *out("reduce.json")], ()),
+        ])
+
+        # (c) the canonical protocol, cut to a few seconds
+        text = texts["canonical"]
+        csv = [ln for ln in text.splitlines()
+               if ln.startswith(TOOLS_CANONICAL + ",")]
+        rec = json_lines(text)[-1]
+        if not csv or csv[-1].split(",")[1] != str(rec["written"]):
+            fail(f"canonical: no CSV line for record {rec}")
+        print(f"canonical: {csv[-1]} (t_gnn {rec['t_gnn']} s, assist "
+              f"batches {(rec['assist'] or {}).get('batches')})")
+
+        # (d) the sharded scorer's cover against one device's
+        (rec,) = json_lines(texts["sharded_solve"])
+        if not rec["identical_covers"] or rec["cost_mesh"] != rec["cost_single"]:
+            fail(f"sharded_solve: {rec}")
+        print(f"sharded_solve {TOOLS_CANONICAL} P=4: identical covers, cost "
+              f"{rec['cost_mesh']}; phase 1 {rec['t_phase1_mesh_s']} s sharded "
+              f"vs {rec['t_phase1_single_s']} s single; h_max {rec['h_max']}, "
+              f"{rec['halo_bytes_per_shard_per_layer']} B per shard per layer")
+
+        # (e) K1 and the forward on ER slices: a graph without locality
+        er = json_lines(texts["er_slice_bench"])
+        for r in er:
+            if r["k1_max_abs_err"] > 1e-4:
+                fail(f"er_slice_bench: K1 differs from its plain version: {r}")
+            print(f"er_slice_bench P={r['parts']} (n={r['n_slice']}, "
+                  f"e={r['e_slice']}): forward {r['t_iter_ms']:.4f} ms; K1 "
+                  f"masked {r['k1_device_ms']:.4f} ms on the device (bound "
+                  f"{r['k1_bound_ms']:.4f} ms, {r['k1_bound_frac']:.1%}), "
+                  f"unmasked {r['k1_unmasked_device_ms']:.4f} ms (bound "
+                  f"{r['k1_unmasked_bound_ms']:.4f}), torch.sparse.mm "
+                  f"{r['sparse_mm_device_ms']:.4f} ms; K1 max |diff| "
+                  f"{r['k1_max_abs_err']:.3g}")
+
+        # (f) the sharded forward over P shards of the card
+        scale = json.loads(texts["scale_bench"].strip().splitlines()[-1])
+        weak = json_lines(texts["scaling_weak"])[-1]
+        errs = [r["max_abs_err_vs_single"] for r in scale] + [
+            c["max_err_vs_single"] for v in weak.values() for c in v["configs"]]
+        if max(errs) > 1e-5:
+            fail(f"scale_bench / scaling_weak: error {max(errs)} vs one device")
+        print("scale_bench: " + "; ".join(
+            f"P={r['parts']} {r['ms']:.4f} ms, h_max {r['h_max']}, partition "
+            f"{r['t_partition_s']:.3f} s" for r in scale)
+            + f"; scaling_weak: max error vs one device {max(errs):.3g}")
+
+        # (g) the host reduce against the device prepass
+        text = texts["reduce_scale"]
+        winner = json_lines(text)[-1]
+        sides = {ln.split(":")[0]: json.loads(ln.split(":", 1)[1])
+                 for ln in text.splitlines()
+                 if ln.startswith(("host:", "device:"))}
+        print(f"reduce_scale side {TOOLS_REDUCE_SIDE}: host kernel "
+              f"{sides['host']['kernel']} in {sides['host']['t_reduce']} s; "
+              f"device prepass {sides['device']['t_prepass']} s + "
+              f"{sides['device']['t_reduce']} s, kernel "
+              f"{sides['device']['kernel']}; winner {winner['winner']}")
+    print(f"phase 11: {time.perf_counter() - t0:.3f} s")
+    names = ("dump_kernel", "assist_ab", "canonical", "sharded_solve",
+             "er_slice_bench", "scale_bench", "scaling_weak", "reduce_scale")
+    return {name: SURFACE_LAUNCHES[name] for name in names}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", type=float, default=150.0,
@@ -1341,6 +1494,7 @@ def main():
                     help="road-like graph side (side^2 nodes)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not os.path.isdir(os.path.join(HERE, "gnn_mwvc_tpu_torch", "csrc")):
         fail("run from a checkout of the repository (gnn_mwvc_tpu_torch/ missing)")
@@ -1364,6 +1518,8 @@ def main():
         capture_output=True, text=True, timeout=60)
     max_mhz, cur_mhz = (float(v) for v in
                         clocks.stdout.strip().splitlines()[0].split(","))
+    from gnn_mwvc_tpu_torch.tools._common import HBM_BYTES_PER_S
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_ops_per_s = sms * INT32_LANES_PER_SM * max_mhz * 1e6
     print(f"clocks: SM max {max_mhz:g} MHz, now {cur_mhz:g} MHz; {sms} SMs, "
@@ -1386,13 +1542,19 @@ def main():
     k4_err, enum_op = phase_k4(torch, rng, int_ops_per_s)
 
     # 4. K1 and 5. forward on the road-like graph
-    from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
+    from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
+                                          neighbour_weight_sum)
 
     t0 = time.perf_counter()
     g = build_road_graph(args.side)
+    t1 = time.perf_counter()
     dg = DeviceGraph.from_graph(g, "cuda")
+    t2 = time.perf_counter()
+    neighbour_weight_sum(g.weights.astype(np.float32), g.row_ids(), g.indices)
+    t_nw = time.perf_counter() - t2
     print(f"graph: road side {args.side}, n={g.n}, m={g.m}, "
-          f"built in {time.perf_counter() - t0:.3f} s")
+          f"generated in {t1 - t0:.3f} s, DeviceGraph built in {t2 - t1:.3f} "
+          f"s (of which its NW sum in CSR order, np.add.at, {t_nw:.3f} s)")
     k1 = phase_k1(torch, dg, rng)
     phase_forward(torch, g, dg, rng)
     k1_back = phase_backward(torch, dg, rng, args.seed)
@@ -1418,10 +1580,15 @@ def main():
     # 10. the multi-device path on the one card
     by_path = phase_sharded(torch, g, args.seed)
     del g
+    torch.cuda.empty_cache()
+
+    # 11. the port's tools
+    by_path["tools"] = phase_tools(args.side)
 
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
     by_path = {"solve": launches, "train": train_launches, **by_path}
+    print(f"smoke: phases 1-11 in {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",

@@ -5,6 +5,7 @@ from gnn_mwvc_tpu_torch.core.api import (  # noqa: F401
     Snapshot,
     approx_cover,
     baseline_solve,
+    bfs_order,
     cluster_order,
     confidence_order_native,
     greedy_cover,

@@ -9,7 +9,10 @@ nothing is written next to them.  These bindings cover what the port calls:
 the kernelisation engine (``CoreSolver``), the phase-2 local search
 (``CoreLocalSearch``), two orderings, and the constructions and baseline
 solvers behind the approximation solver, the ablation grid and
-``mwvc-baseline-torch``.
+``mwvc-baseline-torch``.  Not bound: the JAX bindings' native relabel and
+CPU forward (``relabel_csr``, ``cpu_forward_native``), which no caller of the
+port needs, and the windowed-MXU plans (``pair_order``, ``blocked_pack``),
+which K1 replaced.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import threading
 import numpy as np
 
 __all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
-           "confidence_order_native", "cluster_order", "improve_cover",
+           "bfs_order", "confidence_order_native", "cluster_order",
+           "improve_cover",
            "approx_cover", "greedy_cover", "baseline_solve", "BASELINE_IDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,6 +72,8 @@ _SIGNATURES = {
     "mwvc_bulk_twins": ([_c, u32p, ct.c_uint32], ct.c_uint32),
     "mwvc_bulk_r5": ([_c, u32p, ct.c_uint32], ct.c_uint32),
     "mwvc_labels_from_model": ([_c], ct.c_uint64),
+    "mwvc_mistakes_from_model": ([_c], ct.c_uint64),
+    "mwvc_bfs_order": ([ct.c_uint32, u64p, u32p, u32p], None),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
                            None),
     "mwvc_confidence_order": ([ct.c_uint32, f32p, u64p, u32p, ct.c_double,
@@ -333,6 +339,12 @@ class CoreSolver:
     def labels_from_model(self):
         return int(self._lib.mwvc_labels_from_model(self._h))
 
+    @property
+    def mistakes_from_model(self):
+        """Peel entries skipped, over all peels, because the core had
+        already decided the vertex against the model's label."""
+        return int(self._lib.mwvc_mistakes_from_model(self._h))
+
     def unfold(self, t=0):
         self._lib.mwvc_unfold(self._h, t)
 
@@ -471,6 +483,18 @@ def confidence_order_native(prob, weights, deg, eps):
     out = np.empty(len(prob), dtype=np.uint32)
     lib.mwvc_confidence_order(len(prob), prob, weights, deg, float(eps), out)
     return out
+
+
+def bfs_order(indptr, indices):
+    """Pseudo-Cuthill-McKee vertex order: perm[i] = the old id placed at new
+    position i."""
+    lib = _load()
+    n = len(indptr) - 1
+    indptr = np.ascontiguousarray(indptr, dtype=np.uint64)
+    indices = np.ascontiguousarray(indices, dtype=np.uint32)
+    perm = np.empty(n, dtype=np.uint32)
+    lib.mwvc_bfs_order(n, indptr, indices, perm)
+    return perm
 
 
 def cluster_order(indptr, indices, cluster_size=128):

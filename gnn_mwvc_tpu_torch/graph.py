@@ -16,7 +16,21 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Graph", "DeviceGraph", "build_road_graph", "random_graph"]
+__all__ = ["Graph", "DeviceGraph", "build_road_graph", "neighbour_weight_sum",
+           "random_graph"]
+
+
+def neighbour_weight_sum(weights_f32: np.ndarray, rows: np.ndarray,
+                         indices: np.ndarray) -> np.ndarray:
+    """NW(u), the float32 sum of u's neighbours' weights, added in CSR order
+    with a rounding at every add, as the JAX package's ``DeviceGraph.build``
+    adds it (``np.add.at``).  The order matters once NW passes 2^24, where
+    float32 no longer holds every integer.  rows: the row of each CSR entry
+    (sorted); the result has ``len(weights_f32)`` entries."""
+    nw = np.zeros(len(weights_f32), dtype=np.float32)
+    if len(indices):
+        np.add.at(nw, rows, np.asarray(weights_f32, np.float32)[indices])
+    return nw
 
 
 class Graph:
@@ -96,7 +110,10 @@ class DeviceGraph:
     nw: torch.Tensor
 
     @staticmethod
-    def build(weights, indptr, indices, device) -> "DeviceGraph":
+    def build(weights, indptr, indices, device, nw=None) -> "DeviceGraph":
+        """nw: the neighbourhood weight sums where the caller has them (a
+        core snapshot's, which the sticky scorers replace with the live
+        ones anyway); else summed here in the JAX package's order."""
         weights = np.asarray(weights)
         indptr = np.asarray(indptr, dtype=np.int64)
         indices = np.asarray(indices, dtype=np.int64)
@@ -109,11 +126,12 @@ class DeviceGraph:
         if len(indices) >= 2**31:
             raise ValueError(f"{len(indices)} directed edges overflow int32")
         deg = np.diff(indptr)
-        rows = np.repeat(np.arange(n, dtype=np.int64), deg)
         w32 = weights.astype(np.float32)
-        # float64 sums of integer weights are exact, then rounded once
-        nw = np.bincount(rows, weights=w32[indices].astype(np.float64),
-                         minlength=n).astype(np.float32)
+        if nw is None:
+            rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+            nw = neighbour_weight_sum(w32, rows, indices)
+        elif np.shape(nw) != (n,):
+            raise ValueError(f"nw has shape {np.shape(nw)}, not ({n},)")
 
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)

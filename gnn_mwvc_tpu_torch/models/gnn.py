@@ -23,10 +23,12 @@ matmuls and cuDNN here, at import.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from gnn_mwvc_tpu_torch.graph import DeviceGraph
+from gnn_mwvc_tpu_torch.models import _threefry as threefry
 from gnn_mwvc_tpu_torch.models.serialize import ModelSpec, params_from_jax
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate
 
@@ -138,19 +140,18 @@ def build_reference_arch() -> tuple:
 
 @torch.no_grad()
 def init_params(model: MWVCModel, seed: int = 0) -> MWVCModel:
-    """U(-lim, lim) init in place, lim = 1/sqrt(dim_in + 1), linear layer i
-    drawn from its own ``torch.Generator`` seeded ``seed + i`` (weight, then
-    bias), on the CPU so every device gets the same values.
-
-    The law is the JAX ``init_params``'s, the numbers are not: torch's
-    generator cannot reproduce ``jax.random``'s bits.  To start both
-    packages from the same point, carry JAX parameters across with
-    ``params_from_jax``.
-    """
+    """U(-lim, lim) init in place, lim = 1/sqrt(dim_in + 1): the JAX
+    ``init_params``'s numbers, bit for bit.  Linear layer i draws from
+    ``key(seed + i)`` split in two, the (din, dout) weight from the first
+    key and the bias from the second (``models/_threefry.py``, the JAX
+    default PRNG in numpy); the weight is stored transposed, as
+    ``nn.Linear`` keeps (dout, din)."""
     for i, lin in enumerate(model.linears):
-        gen = torch.Generator().manual_seed(seed + i)
-        lim = 1.0 / (lin.in_features + 1) ** 0.5
-        for p in (lin.weight, lin.bias):
-            u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
-            p.copy_(u * (2 * lim) - lim)
+        din, dout = lin.in_features, lin.out_features
+        lim = 1.0 / np.sqrt(din + 1)
+        kw, kb = threefry.split(threefry.key(seed + i))
+        w = threefry.uniform(kw, (din, dout), -lim, lim)
+        b = threefry.uniform(kb, (dout,), -lim, lim)
+        lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+        lin.bias.copy_(torch.from_numpy(b))
     return model

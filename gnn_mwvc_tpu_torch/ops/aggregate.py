@@ -77,9 +77,25 @@ def _check_inputs(x, indptr, indices, mask, transposed, block):
     csrs = [(indptr, indices)] + ([transposed] if transposed is not None else [])
     for ptr, idx in csrs:
         if ptr.dtype != torch.int32 or ptr.dim() != 1 or ptr.numel() < 1:
-            raise ValueError("indptr must be 1-D int32")
+            raise ValueError("indptr must be 1-D int32 with at least 1 entry")
         if idx.dtype != torch.int32 or idx.dim() != 1:
             raise ValueError("indices must be 1-D int32")
+        if idx.numel() >= 2**31:
+            raise ValueError(f"{idx.numel()} CSR entries overflow int32")
+    # K1 reads x through the indices unchecked.  Checking a CUDA CSR here
+    # would cost a sync per call, so the code that makes it checks it once
+    # (DeviceGraph.build, partition_device_graph); a CPU CSR is checked here.
+    # The transposed CSR indexes the forward's output rows.
+    n_out = indptr.numel() - 1
+    for (ptr, idx), cols in zip(csrs, (n_src, n_out)):
+        if ptr.device.type != "cpu" or idx.device.type != "cpu":
+            continue
+        if int(ptr[-1]) != idx.numel():
+            raise ValueError(f"indptr[-1] is {int(ptr[-1])}, but there are "
+                             f"{idx.numel()} indices")
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= cols):
+            raise ValueError(f"a CSR index lies outside the {cols} source "
+                             "rows")
     if not block and indptr.shape != (n_src + 1,):
         raise ValueError(f"indptr must be ({n_src + 1},) for {n_src} rows of "
                          "x (block=True for a rectangular block)")

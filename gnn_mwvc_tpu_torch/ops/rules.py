@@ -29,6 +29,8 @@ import collections
 import numpy as np
 import torch
 
+from gnn_mwvc_tpu_torch.graph import neighbour_weight_sum
+
 __all__ = ["rule_masks", "twin_hash", "build_ell8", "r5_candidates",
            "twin_groups", "mask_inputs"]
 
@@ -77,18 +79,16 @@ def twin_hash(row: torch.Tensor, col: torch.Tensor, n: int) -> torch.Tensor:
 
 def mask_inputs(weights, indptr, indices):
     """Host arrays (row, col int32; W, D, NW float32) as the JAX package's
-    ``DeviceGraph.build`` makes them: NW is added in float32 in CSR order,
-    rounding at every add, so r1 and the twin key see the same values once
-    NW passes 2^24."""
+    ``DeviceGraph.build`` makes them (NW by ``neighbour_weight_sum``, as
+    the port's ``DeviceGraph`` sums it), so r1 and the twin key see the same
+    values once NW passes 2^24."""
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int64)
     n = len(weights)
     deg = np.diff(indptr)
     rows = np.repeat(np.arange(n, dtype=np.int64), deg)
     w = np.asarray(weights, dtype=np.float32)
-    nw = np.zeros(n, dtype=np.float32)
-    if len(indices):
-        np.add.at(nw, rows, w[indices])
+    nw = neighbour_weight_sum(w, rows, indices)
     return (rows.astype(np.int32), indices.astype(np.int32), w,
             deg.astype(np.float32), nw)
 

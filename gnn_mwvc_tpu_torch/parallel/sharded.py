@@ -150,6 +150,16 @@ def _local_sources(indptr, indices, n, parts, n_loc, halo):
     return local, send, h_max
 
 
+def _check_block(p, ptr, idx, n_src):
+    """A shard's block CSR on the host, before upload: K1 reads x through it
+    unchecked on the card (``csr_aggregate`` checks only CPU tensors)."""
+    if (ptr[0] != 0 or (np.diff(ptr) < 0).any() or ptr[-1] != len(idx)
+            or (len(idx) and (idx.min() < 0 or idx.max() >= n_src))):
+        raise ValueError(f"shard {p}: the block CSR is corrupt (indptr "
+                         f"{ptr[0]}..{ptr[-1]} over {len(idx)} indices in "
+                         f"0..{n_src})")
+
+
 def partition_device_graph(dg: DeviceGraph, parts: int, halo: bool = True,
                            devices: Mesh | None = None) -> ShardedGraph:
     """Split a ``DeviceGraph`` into ``parts`` contiguous node ranges.
@@ -185,6 +195,7 @@ def partition_device_graph(dg: DeviceGraph, parts: int, halo: bool = True,
         e_lo, e_hi = indptr[lo], indptr[hi]
         ptr = np.full(n_loc + 1, e_hi - e_lo, dtype=np.int64)
         ptr[:hi - lo + 1] = indptr[lo:hi + 1] - e_lo
+        _check_block(p, ptr, local[e_lo:e_hi], n_src)
 
         def rows(a):
             out = np.zeros(n_loc, np.float32)

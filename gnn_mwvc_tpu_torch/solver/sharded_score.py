@@ -62,7 +62,8 @@ class ShardedGnnScorer(StickyGnnScorer):
 
     def _rebuild(self, core):
         snap = core.snapshot()
-        dg = DeviceGraph.build(snap.weights, snap.indptr, snap.indices, "cpu")
+        dg = DeviceGraph.build(snap.weights, snap.indptr, snap.indices, "cpu",
+                               nw=snap.nw)
         sg = partition_device_graph(dg, self.parts, devices=self.mesh)
         self._state = (sg, snap.ids, core.n_nodes, snap.n)
         self._k_loc = max(256, sg.n_loc // 16)
@@ -70,6 +71,7 @@ class ShardedGnnScorer(StickyGnnScorer):
         self._prev = None
         self.stats["rebuilds"] += 1
         self.stats["h_max"] = sg.h_max
+        self.stats["halo_bytes"] = sg.halo_bytes_per_chip()
 
     def _refresh(self, core):
         """Bring each shard's buffer up to date: deltas routed to their

@@ -56,7 +56,7 @@ class StickyGnnScorer:
     def _rebuild(self, core):
         snap = core.snapshot()
         dg = DeviceGraph.build(snap.weights, snap.indptr, snap.indices,
-                               self.device)
+                               self.device, nw=snap.nw)
         self._state = (dg, snap.ids, core.n_nodes, snap.n)
         self._live = None
         self._prev = None

@@ -165,6 +165,34 @@ def test_peel_model_counters_equal_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_mistakes_from_model_equal_jax(name):
+    """A peel with random scores until the graph is empty: both bindings
+    count the same skipped model labels."""
+    gj = GRAPHS[name]()
+    ours, ref = _pair(gj)
+    rng = np.random.default_rng(8)
+    while ours.active_count:
+        snap = ours.snapshot()
+        prob = rng.random(snap.n).astype(np.float32)
+        order = np.argsort(np.minimum(prob, 1 - prob), kind="stable")
+        for c in (ours, ref):
+            c.peel(snap.ids[order], prob[order], -1)
+        assert ours.mistakes_from_model == ref.mistakes_from_model
+    assert ref.active_count == 0 and ours.labels_from_model > 0
+    _same_state(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bfs_order_equal_jax(name):
+    gj = GRAPHS[name]()
+    perm = core.bfs_order(gj.indptr, gj.indices)
+    np.testing.assert_array_equal(perm, jax_core.bfs_order(gj.indptr,
+                                                           gj.indices))
+    assert perm.dtype == np.uint32
+    np.testing.assert_array_equal(np.sort(perm), np.arange(gj.n))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_constructions_and_dscores_equal_jax(name):
     gj = GRAPHS[name]()
     w, e = gj.weights, gj.edge_array()

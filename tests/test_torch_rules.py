@@ -103,16 +103,20 @@ def test_large_weight_cases_reach_their_ranges():
 
 
 def test_float32_nw_is_summed_the_jax_way():
-    """A once-rounded NW gives another r1 or twin key here: the port must
-    not reuse its DeviceGraph's nw for the masks."""
+    """A once-rounded NW gives another r1 or twin key here: the masks and
+    the port's DeviceGraph both sum NW in the JAX package's order."""
     from gnn_mwvc_tpu_torch.graph import DeviceGraph
 
     g = GRAPHS["nw_over_2^24"]()
     ours = rules.mask_inputs(g.weights, g.indptr, g.indices)[4]
-    once = DeviceGraph.build(g.weights, g.indptr, g.indices, "cpu").nw.numpy()
+    once = np.bincount(np.repeat(np.arange(g.n), np.diff(g.indptr)),
+                       weights=g.weights[g.indices].astype(np.float32)
+                       .astype(np.float64), minlength=g.n).astype(np.float32)
     assert (ours != once).any()
     dg = JaxDeviceGraph.build(g.weights, g.indptr, g.indices, with_ell=False)
     np.testing.assert_array_equal(ours, dg.nw[:g.n])
+    port = DeviceGraph.build(g.weights, g.indptr, g.indices, "cpu").nw.numpy()
+    np.testing.assert_array_equal(port, dg.nw[:g.n])
 
 
 def _ell_inputs(g):
