@@ -30,7 +30,9 @@ non-zero:
                edges/s
   6. solve   - solve() on the road-like graph (1,440,000 nodes) with the
                kernel launch counters reset just before: a valid cover, K1
-               launched in phase 1, K4 launched by the phase-2 assist
+               launched in phase 1, K4 launched by the phase-2 assist; the
+               sticky scorer's rounds under 4M live edges scored per
+               snapshot on the card (at least one; their count printed)
      regions - K4 on 1024 regions extracted from a local search over the
                road-like graph and solve()'s cover, as the assist extracts
                them: bitwise equal to the plain version; region sizes, ms
@@ -51,7 +53,8 @@ non-zero:
                cover
   9. surfaces - on a road-like (side 300) and a random instance written as
                METIS files, each as a subprocess on the card: gnn-vc-torch
-               --quick, mwvc-batch-torch --json over both, solve() with a
+               --quick, gnn-vc-torch (every round per snapshot, K1 in each
+               round; its phase-1 split), mwvc-batch-torch --json over both, solve() with a
                checkpoint then resume_solve() in a new process, mwvc-bench-
                torch on the road-like instance (our, approximation and
                baseline rows) and mwvc-tools-torch vc-validate; any non-zero
@@ -74,7 +77,11 @@ non-zero:
                (d) two processes in a gloo world on cuda:0 (parallel.dryrun
                dist, road300): both exit 0, launch K1, and match the
                single-device forward within 1e-5; (e) gnn-vc-torch --shards 1
-               on road300 as a subprocess, launching K1 and K4
+               on road300 as a subprocess, launching K1 and K4; (f) as (d)
+               with 2 shards per rank (shards 0-1 and 2-3, copies within a
+               rank, all_to_all_single between them), each rank allocating on
+               cuda:0 alone, the train step's loss within 1e-5 of a local
+               4-shard mesh's
   11. tools  - every port tool (gnn_mwvc_tpu_torch/tools/) in a subprocess on
                the card ((a) and (b) one each, (c)-(g) one together, each
                tool's launches counted from 0): (a) dump_kernel on the
@@ -89,6 +96,15 @@ non-zero:
                within 1e-4 of its plain version; (f) scale_bench and
                scaling_weak: sharded scores within 1e-5 of one device's;
                (g) reduce_scale at side 450: both kernel sizes and times
+  12. studies - in one subprocess on the card: (a) precision_study on the
+               road-like graph relabelled by cluster_order: ms, edges/s and
+               error vs the CPU fp32 forward at highest / mixed / default
+               (TF32), highest within 2e-5; (b) train_quality cut to 4 corpus
+               graphs, 2 epochs, 0.5 s budgets and 2 held-out graphs: the
+               trained model's covers beside the published one's; (c)
+               smallsolve_bench at B = 1024: K4 bitwise equal to its plain
+               version (n = 16, 20) and to the enumeration (n = 16), then ms
+               and regions/s of each
 Then one JSON line of launch counts by path, one of per-kernel numbers, one
 of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
 2^16 enumeration, which are not hand kernels), and as the last line
@@ -594,15 +610,18 @@ def phase_solve(torch, g, time_limit):
     from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover, read_metis
     from gnn_mwvc_tpu_torch.ops import _build
     from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
 
     ex3 = read_metis(io.BytesIO(b"3 2 10\n15 3\n15 3\n20 1 2\n"))
     r = solve(ex3, time_limit=1.0, device="cuda")
     if r.cost != 20 or list(r.solution) != [0, 0, 1]:
         fail(f"solve ex3: cost {r.cost}, cover {list(r.solution)}; want 20, [0, 0, 1]")
 
+    # solve()'s own default scorer, built here to read its routing
+    scorer = StickyGnnScorer(device="cuda")
     _build.launches.clear()
     t0 = time.perf_counter()
-    res = solve(g, time_limit=time_limit, device="cuda")
+    res = solve(g, time_limit=time_limit, device="cuda", scorer=scorer)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
     if not is_vertex_cover(g, res.solution):
@@ -614,6 +633,16 @@ def phase_solve(torch, g, time_limit):
     k4 = launches.get("small_mwvc_mitm", 0)
     if p1["rounds"] < 1 or k1 < 2 * p1["rounds"]:
         fail(f"solve: K1 launched {k1} times over {p1['rounds']} phase-1 rounds")
+    sticky, legacy = scorer.stats["rounds"], scorer.stats["legacy_rounds"]
+    snap_dev = getattr(scorer._snapshot_scorer, "device", None)
+    if sticky + legacy != p1["rounds"] or legacy < 1 or \
+            snap_dev is None or snap_dev.type != "cuda":
+        fail(f"solve: {sticky} sticky + {legacy} per-snapshot rounds of "
+             f"{p1['rounds']}, per-snapshot device {snap_dev}")
+    print(f"solve routing: {sticky} sticky rounds, {legacy} per-snapshot "
+          f"rounds on {snap_dev} (under {scorer.min_live_edges:,} live "
+          f"directed edges) in {scorer.stats['seconds_legacy']:.3f} s; K1 "
+          f"{k1} launches over {p1['rounds']} rounds")
     stats = res.assist_stats or {}
     if k4 < 1 or stats.get("batches", 0) < 1:
         fail(f"solve: K4 launched {k4} times, assist batches {stats.get('batches')}")
@@ -915,6 +944,26 @@ def phase_surfaces(seed):
             fail(f"gnn-vc-torch --quick: CSV line {line}")
         quick_cost = int(line[1] if len(line) == 4 else line[6])
         checked_cover(sol_path, quick_cost, "gnn-vc-torch --quick")
+
+        # the default: every round scored per snapshot (GnnScorer), on the
+        # card, K1 in each round and K4 in the phase-2 assist
+        gnn_sol = os.path.join(tmp, road + ".gnn.sol")
+        rec = json.loads(run_surface(
+            "gnn-vc-torch", "gnn_mwvc_tpu_torch.solver.cli",
+            [paths[road], gnn_sol, t, "-1", "0", "--json"],
+            need=both).strip().splitlines()[-1])
+        p1 = rec["phase1"]
+        k1 = SURFACE_LAUNCHES["gnn-vc-torch"].get("csr_aggregate", 0)
+        if rec["device"] != "cuda" or p1["rounds"] < 1 or \
+                k1 < 2 * p1["rounds"]:
+            fail(f"gnn-vc-torch: K1 launched {k1} times over "
+                 f"{p1['rounds']} rounds: {rec}")
+        checked_cover(gnn_sol, rec["cost"], "gnn-vc-torch")
+        print(f"gnn-vc-torch {road}: per-snapshot phase 1 "
+              f"{rec['time_gnn']:.3f} s (reduce {p1['t_reduce0_s']:.3f}, score "
+              f"{p1['t_score_s']:.3f}, peel {p1['t_peel_s']:.3f}, rounds "
+              f"{p1['rounds']}), K1 {k1} launches; cost {rec['cost']}, best "
+              f"seen {rec['best_seen']}")
 
         out_dir = os.path.join(tmp, "batch")
         rows = [json.loads(ln) for ln in run_surface(
@@ -1254,8 +1303,10 @@ def phase_sharded_train(torch, g, rng):
     return launches
 
 
-def phase_sharded_dist():
-    """10d: two processes, one shard each, in a gloo world on cuda:0."""
+def phase_sharded_dist(torch, k=1):
+    """10d (k = 1) and 10f (k = 2): two processes of k shards each in a gloo
+    world on cuda:0; for k > 1 the train step's loss is held against a
+    local mesh of 2k shards of cuda:0."""
     import socket
 
     sock = socket.socket()
@@ -1265,7 +1316,7 @@ def phase_sharded_dist():
     procs = [subprocess.Popen(
         [sys.executable, "-m", "gnn_mwvc_tpu_torch.parallel.dryrun", "dist",
          str(rank), "2", init, "--backend", "gloo", "--device", "cuda:0",
-         "--road", str(DIST_SIDE)],
+         "--road", str(DIST_SIDE), "--shards-per-rank", str(k)],
         cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE) for rank in range(2)]
     outs = []
@@ -1286,16 +1337,42 @@ def phase_sharded_dist():
                  f"{err[-3000:]}")
         r = json.loads(out.strip().splitlines()[-1])
         if not r["ok"] or r["max_abs_err"] > 1e-5 or \
-                r["launches"].get("csr_aggregate", 0) < 1:
-            fail(f"gloo world: rank {rank}: {r}")
+                r["launches"].get("csr_aggregate", 0) < k or \
+                r["shard_ids"] != list(range(rank * k, rank * k + k)) or \
+                r["cuda_devices_used"] != ["cuda:0"]:
+            fail(f"gloo world, {k} shards per rank: rank {rank}: {r}")
         results.append(r)
+    if results[0]["loss"] != results[1]["loss"]:
+        fail(f"gloo world: the ranks' losses differ: {results}")
+    local = None
+    if k > 1:
+        from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
+        from gnn_mwvc_tpu_torch.models import pretrained_model
+        from gnn_mwvc_tpu_torch.parallel import (make_mesh,
+                                                 make_sharded_train_step,
+                                                 partition_device_graph)
+        from gnn_mwvc_tpu_torch.parallel.dryrun import train_labels
+
+        g = build_road_graph(DIST_SIDE)
+        mesh = make_mesh(2 * k, devices=["cuda:0"] * (2 * k))
+        sg = partition_device_graph(DeviceGraph.from_graph(g, "cuda:0"),
+                                    2 * k, devices=mesh)
+        step, _opt = make_sharded_train_step(pretrained_model("cuda:0"), mesh)
+        local = step(sg, train_labels(sg), float(g.weights.max()))
+        if abs(local - results[0]["loss"]) > 1e-5 * abs(local):
+            fail(f"gloo world, {k} shards per rank: loss "
+                 f"{results[0]['loss']} against the local mesh's {local}")
     for r in results:
-        print(f"gloo rank {r['rank']} of 2 on {r['device']} ({r['transport']}), "
-              f"road{DIST_SIDE} n={r['n']}, n_loc {r['n_loc']}, h_max "
-              f"{r['h_max']}: exit 0, within {r['max_abs_err']:.3g} of the "
-              f"single-device forward; {r['forward_ms']:.4f} ms per forward "
-              f"(host clock); train step loss {r['loss']:.6f}; launches "
-              f"{r['launches']}")
+        print(f"gloo rank {r['rank']} of 2, shards {r['shard_ids']} on "
+              f"{r['device']} ({r['transport']}), road{DIST_SIDE} n={r['n']}, "
+              f"n_loc {r['n_loc']}, h_max {r['h_max']}: exit 0, within "
+              f"{r['max_abs_err']:.3g} of the single-device forward; "
+              f"{r['forward_ms']:.4f} ms per forward (host clock); train step "
+              f"loss {r['loss']:.6f}" + ("" if local is None else
+                                         f" (local {2 * k}-shard mesh "
+                                         f"{local:.6f})")
+              + f"; launches {r['launches']}; CUDA devices allocated on "
+              f"{r['cuda_devices_used']}")
     print("not exercised: NCCL (it refuses two ranks on one GPU) and copies "
           "between cards (the machine has one card)")
     return results
@@ -1336,7 +1413,8 @@ def phase_sharded(torch, g, seed):
     torch.cuda.empty_cache()
     train_launches = phase_sharded_train(torch, g, rng)
     torch.cuda.empty_cache()
-    dist = phase_sharded_dist()
+    dist = phase_sharded_dist(torch)
+    dist2 = phase_sharded_dist(torch, k=2)
     cli = phase_shards_cli(seed)
     print(f"phase 10: {time.perf_counter() - t0:.3f} s")
     return {"sharded_forward": {"csr_aggregate": fwd["k1_launches"]},
@@ -1344,6 +1422,8 @@ def phase_sharded(torch, g, seed):
             "sharded_train_step": train_launches,
             "gloo_forward": {"csr_aggregate": sum(
                 r["launches"].get("csr_aggregate", 0) for r in dist)},
+            "gloo_2x2_forward": {"csr_aggregate": sum(
+                r["launches"].get("csr_aggregate", 0) for r in dist2)},
             "shards_1_cli": cli}
 
 
@@ -1486,6 +1566,89 @@ def phase_tools(side):
     return {name: SURFACE_LAUNCHES[name] for name in names}
 
 
+STUDY_EPOCHS = 2            # phase 12b's training epochs
+STUDY_BUDGET = 0.5          # phase 12b's label and evaluation budgets, s
+STUDY_ITERS = 5             # phase 12a's timed forwards per batch (2 batches)
+STUDY_BURSTS = 2            # phase 12c's bursts of 5 calls
+
+# phase 12b: train_quality on 4 of its corpus graphs and 2 held-out ones
+TRAIN_QUALITY_CUT = (
+    "import sys\n"
+    "from gnn_mwvc_tpu_torch.tools import train_quality as tq\n"
+    "corpus, heldout = tq.corpus, tq.heldout\n"
+    "tq.corpus = lambda rng=None: [c for c in corpus(rng)\n"
+    "                              if c[0] in ('er0', 'pl0', 'grid0', 'grid1')]\n"
+    "tq.heldout = lambda: [h for h in heldout() if h[0] in ('er12k', 'grid110')]\n"
+    "sys.exit(tq.main(sys.argv[1:]))\n")
+
+
+def phase_study_tools(side):
+    """Phase 12: precision_study (road side, as the bench scores it),
+    train_quality on a cut-down corpus, and smallsolve_bench, which holds
+    K4 against its plain version before timing it; one subprocess on the
+    card, each tool's launches counted from 0."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    k1, k4 = "csr_aggregate", "small_mwvc_mitm"
+    mod = "gnn_mwvc_tpu_torch.tools."
+    with tempfile.TemporaryDirectory(prefix="mwvc_study_") as tmp:
+        script = os.path.join(tmp, "train_quality_cut.py")
+        with open(script, "w") as f:
+            f.write(TRAIN_QUALITY_CUT)
+
+        def out(name):
+            return ["--out", os.path.join(tmp, name)]
+
+        texts = run_surfaces([
+            ("precision_study", mod + "precision_study",
+             ["--side", side, "--iters", STUDY_ITERS, "--batches", 2,
+              *out("precision.json")], (k1,)),
+            ("train_quality", script,
+             ["--epochs", STUDY_EPOCHS, "--label-budget", STUDY_BUDGET,
+              "--eval-budget", STUDY_BUDGET, "--workdir",
+              os.path.join(tmp, "tq"), *out("tq.json")], (k1,)),
+            ("smallsolve_bench", mod + "smallsolve_bench",
+             ["--bursts", STUDY_BURSTS, *out("smallsolve.json")], (k4,)),
+        ])
+        with open(os.path.join(tmp, "tq.json")) as f:
+            tq = json.load(f)
+    rep = json_lines(texts["precision_study"])[-1]
+    for tag in ("highest", "mixed", "default"):
+        r = rep[tag]
+        print(f"precision_study road{side} {tag} ({r['what']}): "
+              f"{r['ms_per_forward']:.4f} ms per forward, {r['edges_per_s']:,} "
+              f"edges/s; vs the CPU fp32 forward max |err| "
+              f"{r['max_abs_err']:.3g}, mean {r['mean_abs_err']:.3g}, share "
+              f"over 2e-5 {r['frac_gt_2e-5']:.4g}")
+    if rep["highest"]["max_abs_err"] > 2e-5 or \
+            rep["mixed"]["max_abs_err"] > 2e-5:
+        fail(f"precision_study: the fp32 forward differs from the CPU's by "
+             f"{rep['highest']['max_abs_err']}")
+    if len(tq["rows"]) != 2 or tq["samples"] < 2:
+        fail(f"train_quality: {tq}")
+    for r in tq["rows"]:
+        print(f"train_quality (cut: corpus {tq['samples']} graphs, "
+              f"{tq['epochs']} epochs, {STUDY_BUDGET:g} s budgets) {r['name']} "
+              f"n={r['n']}: phase 1 published {r['published']['phase1']} / "
+              f"trained {r['trained']['phase1']} ({r['delta_phase1_pct']:+.4f}"
+              f"%), final {r['published']['final']} / {r['trained']['final']} "
+              f"({r['delta_final_pct']:+.4f}%)")
+    print(f"train_quality: corpus {tq['t_corpus_s']:.3f} s, training "
+          f"{tq['t_train_s']:.3f} s")
+    sb = json_lines(texts["smallsolve_bench"])[-1]
+    print(f"smallsolve_bench B={sb['batch']}: {sb['parity_n16']} (n=16), "
+          f"{sb['parity_n20']} (n=20); n=16 K4 {sb['k4_n16_ms']:.4f} ms "
+          f"({sb['k4_16_regions_per_s']:,.0f} regions/s), enumeration "
+          f"{sb['enum_n16_ms']:.4f} ms ({sb['enum_regions_per_s']:,.0f} "
+          f"regions/s, K4 {sb['speedup_n16']:.1f}x); n=20 K4 "
+          f"{sb['k4_n20_ms']:.4f} ms ({sb['k4_20_regions_per_s']:,.0f} "
+          "regions/s); eager calls between CUDA events")
+    print(f"phase 12: {time.perf_counter() - t0:.3f} s")
+    return {name: SURFACE_LAUNCHES[name] for name in
+            ("precision_study", "train_quality", "smallsolve_bench")}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", type=float, default=150.0,
@@ -1585,10 +1748,13 @@ def main():
     # 11. the port's tools
     by_path["tools"] = phase_tools(args.side)
 
+    # 12. the precision, training-quality and small-solve studies
+    by_path["study_tools"] = phase_study_tools(args.side)
+
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
     by_path = {"solve": launches, "train": train_launches, **by_path}
-    print(f"smoke: phases 1-11 in {time.perf_counter() - t_start:.3f} s")
+    print(f"smoke: phases 1-12 in {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["Graph", "DeviceGraph", "build_road_graph", "neighbour_weight_sum",
-           "random_graph"]
+           "powerlaw_graph", "random_graph"]
 
 
 def neighbour_weight_sum(weights_f32: np.ndarray, rows: np.ndarray,
@@ -187,3 +187,24 @@ def random_graph(n: int, avg_deg: int, seed: int = 0,
     keep = lo != hi
     edges = np.unique(np.stack([lo[keep], hi[keep]], axis=1), axis=0)[:m]
     return Graph(rng.integers(1, wmax + 1, size=n), edges)
+
+
+def powerlaw_graph(n: int, m_attach: int, seed: int,
+                   wmax: int = 1000) -> Graph:
+    """Preferential-attachment graph, weights in [1, wmax]: the same
+    generator (and, for a given seed, the same graph) as the repository's
+    ``tools/soak.py::powerlaw_graph``."""
+    rng = np.random.default_rng(seed)
+    targets = list(range(m_attach))
+    repeated = []
+    edges = []
+    for v in range(m_attach, n):
+        for t in targets[:m_attach]:
+            edges.append((t, v))
+        repeated.extend(targets[:m_attach])
+        repeated.extend([v] * m_attach)
+        idx = rng.integers(0, len(repeated), size=m_attach)
+        targets = [repeated[i] for i in idx]
+    e = np.unique(np.sort(np.array(edges), axis=1), axis=0)
+    e = e[e[:, 0] != e[:, 1]]
+    return Graph(rng.integers(1, wmax + 1, size=n), e)

@@ -16,12 +16,17 @@ The forward is differentiable end to end (the neighbour sums through K1's
 columns zero gradient, as ``dynamic_update_slice`` does under ``jax.grad``),
 which is what ``train/`` trains.
 
-The linear layers are ``nn.Linear`` in float32.  The JAX reference runs its
-dots at ``Precision.HIGHEST`` (full fp32), so TF32 is switched off for both
-matmuls and cuDNN here, at import.
+The linear layers are ``nn.Linear`` in float32.  ``precision`` picks their
+products on a card, as the JAX forward's does: ``"highest"`` (the default)
+full fp32, as the JAX reference's ``Precision.HIGHEST``; ``"default"`` TF32.
+The switch holds for the call alone (``matmul_precision``).  K1 sums in
+fp32 under either, so the JAX "mixed" setting (products at highest,
+aggregation at default) is ``"highest"`` here.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -32,12 +37,32 @@ from gnn_mwvc_tpu_torch.models import _threefry as threefry
 from gnn_mwvc_tpu_torch.models.serialize import ModelSpec, params_from_jax
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate
 
-__all__ = ["MWVCModel", "build_reference_arch", "graph_layer", "init_params",
-           "score_graph"]
+__all__ = ["MWVCModel", "PRECISIONS", "build_reference_arch", "graph_layer",
+           "init_params", "matmul_precision", "score_graph"]
 
-# fp32 parity with the JAX reference (Precision.HIGHEST): no TF32 anywhere
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+PRECISIONS = ("highest", "default")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """cuBLAS float32 products inside the block: ``"highest"`` IEEE fp32,
+    ``"default"`` TF32.  The process's setting is restored on exit, and
+    whatever it was before does not reach the block.  CPU products are
+    fp32 under either."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of {PRECISIONS}")
+    tf32 = precision == "default"
+    flags = torch.backends.cuda.matmul
+    if hasattr(flags, "fp32_precision"):
+        name, value = "fp32_precision", "tf32" if tf32 else "ieee"
+    else:
+        name, value = "allow_tf32", tf32
+    before = getattr(flags, name)
+    setattr(flags, name, value)
+    try:
+        yield
+    finally:
+        setattr(flags, name, before)
 
 
 def graph_layer(x: torch.Tensor, agg: torch.Tensor, dg: DeviceGraph,
@@ -78,7 +103,8 @@ class MWVCModel(nn.Module):
 
     def forward(self, x: torch.Tensor, dg: DeviceGraph, weight_scale: float,
                 compat: bool = True, x_is_node_weights: bool = False,
-                source_mask: torch.Tensor | None = None) -> torch.Tensor:
+                source_mask: torch.Tensor | None = None,
+                precision: str = "highest") -> torch.Tensor:
         """Run the layer sequence; returns (n, out_width) activations.
 
         x_is_node_weights: x == W/ws (the solver's input), so the first
@@ -89,7 +115,15 @@ class MWVCModel(nn.Module):
         weights each source row by its mask, so dead rows contribute
         nothing and live rows aggregate over their live neighbourhoods.
         Dead rows' own outputs are not meaningful.
+
+        precision: ``"highest"`` or ``"default"`` (``matmul_precision``).
         """
+        with matmul_precision(precision):
+            return self._layers(x, dg, weight_scale, compat,
+                                x_is_node_weights, source_mask)
+
+    def _layers(self, x, dg, weight_scale, compat, x_is_node_weights,
+                source_mask):
         h = x
         first_graph = True
         linears = iter(self.linears)

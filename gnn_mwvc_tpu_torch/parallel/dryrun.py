@@ -3,6 +3,7 @@
     python -m gnn_mwvc_tpu_torch.parallel.dryrun local N [--device cpu|cuda:0]
     python -m gnn_mwvc_tpu_torch.parallel.dryrun dist RANK WORLD INIT_METHOD \\
         [--backend gloo] [--device cpu|cuda:K] [--road SIDE]
+        [--shards-per-rank K] [--out ROWS.npy]
 
 ``local``: over a mesh of N shards in this process (one per CUDA card with
 ``--device cuda``, the default; all N on a device named otherwise), on a
@@ -12,13 +13,16 @@ forward (finite scores), then ``solve(time_limit=0)`` with
 
 ``dist``: one rank of a ``torch.distributed`` world of WORLD ranks (start
 one process per rank with the same INIT_METHOD, e.g.
-``tcp://127.0.0.1:29512``), one shard each, on a road-like graph: the
-sharded forward, its rows held within 1e-5 of this rank's single-device
-forward, then one train step; on ``cuda:<rank % cards>`` unless
-``--device`` names another device (no card raises).  The last line is JSON
-with the rank's error, loss, milliseconds per forward and kernel launches.
-NCCL needs one card per rank; gloo takes CPU or CUDA tensors (CUDA ones
-cross through the host).
+``tcp://127.0.0.1:29512``), K shards each (``--shards-per-rank``, default
+1; the JAX package's ``tests/dist_worker.py`` runs 2 ranks of 2), on a
+road-like graph: the sharded forward, its rows held within 1e-5 of this
+rank's rows of the single-device forward (``--out`` saves them, real nodes
+only, in node order), then one train step; every shard on
+``cuda:<rank % cards>`` unless ``--device`` names another device (no card
+raises).  The last line is JSON with the rank's error, loss, milliseconds
+per forward, kernel launches and the CUDA devices it allocated on.  NCCL
+needs one card per rank; gloo takes CPU or CUDA tensors (CUDA ones cross
+through the host).
 """
 
 from __future__ import annotations
@@ -90,7 +94,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         raise RuntimeError("dry run: non-finite sharded scores")
 
     res = solve(g, time_limit=0.0, device=home, device_assist=False,
-                scorer=ShardedGnnScorer(pretrained_model(home), mesh=mesh))
+                scorer=ShardedGnnScorer(pretrained_model(home), mesh=mesh,
+                                         min_nodes=0))
     if not is_vertex_cover(g, res.solution) or \
             cover_cost(g, res.solution) != res.cost:
         raise RuntimeError("dry run: the sharded solve's cover is invalid")
@@ -106,32 +111,39 @@ def _sync(device):
 
 def dist_worker(rank: int, world: int, init_method: str,
                 backend: str = "gloo", device: str | None = None,
-                road: int = 40) -> dict:
-    """One rank of a process-group world: the sharded forward against this
-    rank's rows of the single-device forward, its time, and one train
-    step.  ``device``: this rank's, default ``cuda:<rank % cards>`` (no
-    card raises).  Raises if the forward differs by more than
-    ``DIST_TOL``."""
+                road: int = 40, shards_per_rank: int = 1,
+                out: str | None = None) -> dict:
+    """One rank of a process-group world of ``shards_per_rank`` shards per
+    rank: the sharded forward against this rank's rows of the
+    single-device forward, its time, and one train step.  ``device``: this
+    rank's, default ``cuda:<rank % cards>`` (no card raises).  Raises if the
+    forward differs by more than ``DIST_TOL``."""
+    k = shards_per_rank
     init_distributed(backend, init_method, world, rank)
     try:
-        mesh = make_mesh(devices=None if device is None else [device],
-                         group=dist.group.WORLD)
+        mesh = make_mesh(world * k, devices=None if device is None
+                         else [device] * k, group=dist.group.WORLD)
         device = mesh.devices[0]
+        if device.type == "cuda":
+            torch.cuda.set_device(device)   # gloo's CUDA work uses this card
         g = build_road_graph(road)
         ws = float(g.weights.max())
         dg = DeviceGraph.from_graph(g, device)
-        sg = partition_device_graph(dg, world, devices=mesh)
+        sg = partition_device_graph(dg, mesh.parts, devices=mesh)
         model = pretrained_model(device)
         single = score_graph(model, dg, ws)
         fwd = make_sharded_forward(model, mesh, x_is_node_weights=True)
         _build.launches.clear()
-        (out,) = fwd(sg, ws)
+        outs = fwd(sg, ws)
         _sync(device)
         launches = dict(_build.launches)
-        lo = rank * sg.n_loc
-        real = int(sg.shards[0].node_mask.sum())
-        err = float((out[:real] - single[lo:lo + real]).abs().max()) \
-            if real else 0.0
+        shard_ids = list(mesh.shard_ids)
+        lo = shard_ids[0] * sg.n_loc
+        rows = torch.cat(outs)[:max(min(g.n - lo, k * sg.n_loc), 0)]
+        err = float((rows - single[lo:lo + len(rows)]).abs().max()) \
+            if len(rows) else 0.0
+        if out is not None:
+            np.save(out, rows.cpu().numpy())
         t0 = time.perf_counter()
         for _ in range(DIST_ITERS):
             fwd(sg, ws)
@@ -140,14 +152,18 @@ def dist_worker(rank: int, world: int, init_method: str,
         step, _opt = make_sharded_train_step(pretrained_model(device), mesh)
         loss = step(sg, train_labels(sg), ws)
         _sync(device)
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())
+                 if torch.cuda.memory_allocated(i) > 0]
     finally:
         dist.destroy_process_group()
     result = {"rank": rank, "world": world, "backend": backend,
-              "device": str(device), "n": g.n, "n_loc": sg.n_loc,
+              "device": str(device), "shards_per_rank": k,
+              "shard_ids": shard_ids, "n": g.n, "n_loc": sg.n_loc,
               "h_max": sg.h_max, "transport": f"all_to_all_single over "
-              f"{backend} on {device.type} tensors",
+              f"{backend} on {device.type} tensors, copies within the rank",
               "max_abs_err": err, "loss": loss, "forward_ms": ms,
-              "launches": launches, "ok": err <= DIST_TOL}
+              "launches": launches, "cuda_devices_used": cards,
+              "ok": err <= DIST_TOL}
     if err > DIST_TOL:
         raise RuntimeError(f"rank {rank}: the sharded forward differs from "
                            f"the single-device one by {err}: {result}")
@@ -171,6 +187,9 @@ def main(argv=None):
                      help="this rank's device (default cuda:<rank %% cards>)")
     dst.add_argument("--road", type=int, default=40,
                      help="side of the road-like graph (side^2 nodes)")
+    dst.add_argument("--shards-per-rank", type=int, default=1)
+    dst.add_argument("--out", default=None,
+                     help="save this rank's forward rows (.npy)")
     args = ap.parse_args(argv)
     if args.mode == "local":
         dev = torch.device(args.device)
@@ -179,7 +198,8 @@ def main(argv=None):
                          else [args.device] * args.shards)
     else:
         print(json.dumps(dist_worker(args.rank, args.world, args.init_method,
-                                     args.backend, args.device, args.road)))
+                                     args.backend, args.device, args.road,
+                                     args.shards_per_rank, args.out)))
     return 0
 
 

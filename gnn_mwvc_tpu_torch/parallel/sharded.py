@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gnn_mwvc_tpu_torch.graph import DeviceGraph
-from gnn_mwvc_tpu_torch.models.gnn import MWVCModel, graph_layer
+from gnn_mwvc_tpu_torch.models.gnn import (MWVCModel, graph_layer,
+                                           matmul_precision)
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_transpose
 from gnn_mwvc_tpu_torch.parallel.mesh import Mesh
 
@@ -214,29 +215,57 @@ def partition_device_graph(dg: DeviceGraph, parts: int, halo: bool = True,
                         shards=shards)
 
 
+def _sync_devices(devices) -> None:
+    """Wait for every queued kernel of these CUDA devices, before a
+    collective reads their tensors (gloo stages CUDA tensors through the
+    host)."""
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def _swap(blocks: list, mesh: Mesh) -> list:
     """All-to-all of equal blocks: ``blocks[i]`` is the i-th local shard's
     buffer of P blocks, block q bound for shard q; returns each local
     shard's received buffer, block q from shard q.
 
-    Local mesh: block copies with ``Tensor.to``.  Between two cards torch
-    runs the copy on the source's current stream after a two-way event
-    barrier with the destination's current stream, and makes the
-    destination's stream wait for the copy, so the received rows are in
-    order before the next kernel on either card.  Process group:
-    ``all_to_all_single`` (gloo stages CUDA tensors through the host).
+    Between shards of one process: block copies with ``Tensor.to``.  Between
+    two cards torch runs the copy on the source's current stream after a
+    two-way event barrier with the destination's current stream, and makes
+    the destination's stream wait for the copy, so the received rows are in
+    order before the next kernel on either card.  Between ranks of a process
+    group: one ``all_to_all_single`` with per-rank split sizes, rank r's
+    part holding, for each local shard i and each of r's shards j, the
+    block from i to j (gloo stages CUDA tensors through the host).
     """
-    if mesh.group is not None:
-        (send,) = blocks
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send.contiguous(), group=mesh.group)
-        return [recv]
-    parts = mesh.parts
+    parts, devs = mesh.parts, mesh.devices
     b = blocks[0].shape[0] // parts
-    devs = mesh.devices
-    return [torch.cat([blocks[q][p * b:(p + 1) * b].to(devs[p],
-                                                       non_blocking=True)
-                       for q in range(parts)]) for p in range(parts)]
+    k = len(devs)
+    first = mesh.shard_ids[0]
+
+    def block(i, q):   # local shard i's block bound for shard q
+        return blocks[i][q * b:(q + 1) * b]
+
+    if parts == k:   # every shard in this process
+        return [torch.cat([block(q, p).to(devs[p], non_blocking=True)
+                           for q in range(parts)]) for p in range(k)]
+    world, rank, home = parts // k, first // k, devs[0]
+    peers = [r for r in range(world) if r != rank]
+    send = torch.cat([block(i, r * k + j).to(home) for r in peers
+                      for i in range(k) for j in range(k)])
+    recv = torch.empty_like(send)
+    splits = [0 if r == rank else k * k * b for r in range(world)]
+    _sync_devices(devs)
+    dist.all_to_all_single(recv, send, splits, splits, group=mesh.group)
+    got = recv.view(len(peers), k, k, b, -1)   # (peer, its shard, ours)
+
+    def received(j, q):
+        if q // k == rank:
+            return block(q - first, first + j).to(devs[j], non_blocking=True)
+        return got[peers.index(q // k), q % k, j].to(devs[j])
+
+    return [torch.cat([received(j, q) for q in range(parts)])
+            for j in range(k)]
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -333,12 +362,14 @@ def _model_on_mesh(model: MWVCModel, mesh: Mesh) -> MWVCModel:
 
 def make_sharded_forward(model: MWVCModel, mesh: Mesh, compat: bool = True,
                          masked: bool = False,
-                         x_is_node_weights: bool = False):
+                         x_is_node_weights: bool = False,
+                         precision: str = "highest"):
     """``forward(sg, ws) -> [scores (n_loc,) of each local shard]``.
 
     masked: the input and every aggregation are gated by the partition's
     node mask.  x_is_node_weights: the first graph layer reads NW/ws (as
-    ``score_graph`` does), so a forward does two exchanges.
+    ``score_graph`` does), so a forward does two exchanges.  precision: the
+    linear layers' products, as ``MWVCModel.forward`` takes it.
     """
     model = _model_on_mesh(model, mesh)
 
@@ -349,15 +380,17 @@ def make_sharded_forward(model: MWVCModel, mesh: Mesh, compat: bool = True,
         if masked:
             masks = [sh.node_mask.float() for sh in sg.shards]
             xs = [x * m[:, None] for x, m in zip(xs, masks)]
-        hs = _layer_stack(model, xs, sg, mesh, ws, compat, masks,
-                          x_is_node_weights)
+        with matmul_precision(precision):
+            hs = _layer_stack(model, xs, sg, mesh, ws, compat, masks,
+                              x_is_node_weights)
         return [h[:, 0] for h in hs]
 
     return forward
 
 
 def make_sticky_sharded_forward(model: MWVCModel, mesh: Mesh,
-                                compat: bool = True):
+                                compat: bool = True,
+                                precision: str = "highest"):
     """The mesh counterpart of the sticky scorer's round:
     ``forward(sg, bufs, upd, ws) -> [scores (n_loc,) of each local shard]``.
 
@@ -365,7 +398,7 @@ def make_sticky_sharded_forward(model: MWVCModel, mesh: Mesh,
     rows W, NW, D, active.  upd: None, or per local shard None or
     ``(idx, vals)``, local rows (k,) int64 and their new values (4, k),
     written into bufs with ``index_copy_`` before the masked forward (the
-    first graph layer reads NW/ws).
+    first graph layer reads NW/ws).  precision: as ``MWVCModel.forward``.
     """
     model = _model_on_mesh(model, mesh)
 
@@ -377,8 +410,9 @@ def make_sticky_sharded_forward(model: MWVCModel, mesh: Mesh,
         masks = [b[3] for b in bufs]
         xs = [(b[0] / ws * b[3]).reshape(-1, 1) for b in bufs]
         stats = [_Stats(degrees=b[2], weights=b[0], nw=b[1]) for b in bufs]
-        hs = _layer_stack(model, xs, sg, mesh, ws, compat, masks,
-                          x_is_node_weights=True, stats=stats)
+        with matmul_precision(precision):
+            hs = _layer_stack(model, xs, sg, mesh, ws, compat, masks,
+                              x_is_node_weights=True, stats=stats)
         return [h[:, 0] for h in hs]
 
     return forward
@@ -392,9 +426,10 @@ def make_sharded_train_step(model: MWVCModel, mesh: Mesh, lr: float = 0.01,
 
     The loss is the global SSE over the global row count.  On a local mesh
     autograd flows through the exchange's copies; in a process group each
-    rank differentiates its SSE over the global count (the exchange's
-    backward carries the peers' gradients) and the parameter gradients are
-    summed over the ranks before the step.  ``torch.optim.SGD`` keeps
+    rank differentiates the SSE of its k shards over the global count (the
+    exchange's backward carries the peers' gradients) and the parameter
+    gradients are summed over the ranks before the step.  The products run
+    in fp32 (``matmul_precision("highest")``).  ``torch.optim.SGD`` keeps
     ``buf = momentum * buf + grad; p -= lr * buf``, the trace form of the
     JAX package's ``optax.sgd``.
     """
@@ -403,8 +438,7 @@ def make_sharded_train_step(model: MWVCModel, mesh: Mesh, lr: float = 0.01,
     params = list(model.parameters())
     home = params[0].device
 
-    def step(sg: ShardedGraph, y, ws: float) -> float:
-        opt.zero_grad(set_to_none=True)
+    def _loss_and_grads(sg: ShardedGraph, y, ws: float) -> torch.Tensor:
         xs = [(sh.weights / ws).reshape(-1, 1) for sh in sg.shards]
         outs = _layer_stack(model, xs, sg, mesh, ws, compat)
         sse, cnt = [], []
@@ -416,15 +450,23 @@ def make_sharded_train_step(model: MWVCModel, mesh: Mesh, lr: float = 0.01,
         if mesh.group is None:
             loss = sum(sse) / sum(cnt).clamp(min=1.0)
             loss.backward()
-        else:
-            total = cnt[0].clone()
-            dist.all_reduce(total, group=mesh.group)
-            (sse[0] / total.clamp(min=1.0)).backward()
-            for p in params:
-                dist.all_reduce(p.grad, group=mesh.group)
-            loss = sse[0].detach().clone()
-            dist.all_reduce(loss, group=mesh.group)
-            loss = loss / total.clamp(min=1.0)
+            return loss
+        total = sum(cnt).detach()
+        _sync_devices([home])
+        dist.all_reduce(total, group=mesh.group)
+        local = sum(sse)
+        (local / total.clamp(min=1.0)).backward()
+        _sync_devices(mesh.devices)
+        for p in params:
+            dist.all_reduce(p.grad, group=mesh.group)
+        loss = local.detach().clone()
+        dist.all_reduce(loss, group=mesh.group)
+        return loss / total.clamp(min=1.0)
+
+    def step(sg: ShardedGraph, y, ws: float) -> float:
+        opt.zero_grad(set_to_none=True)
+        with matmul_precision("highest"):
+            loss = _loss_and_grads(sg, y, ws)
         opt.step()
         return float(loss.detach())
 

@@ -13,7 +13,8 @@ Options: ``--device`` (default cuda; cuda without a GPU is an error),
 (a model file in the reference text format), ``--json``, ``--shards N``
 (phase 1 scored over N shards, ``ShardedGnnScorer``: one per CUDA card from
 ``cuda:0``, or N on the host with ``--device cpu``; the phase-2 assist stays
-on ``--device``; not with ``--quick``).
+on ``--device``; not with ``--quick``).  Without either, phase 1 scores each
+round's snapshot with ``GnnScorer`` on ``--device``, as ``gnn-vc`` does.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def main(argv=None):
     from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
                                             read_metis, write_solution)
     from gnn_mwvc_tpu_torch.models import MWVCModel, load_model
-    from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer, solve
     from gnn_mwvc_tpu_torch.solver.quick import QuickScorer
 
     name = os.path.splitext(os.path.basename(args.graph))[0]
@@ -88,13 +89,14 @@ def main(argv=None):
         print(f"{name}, N = {g.n}, E = {g.m}")
 
     model = MWVCModel.from_spec(load_model(args.model)) if args.model else None
-    scorer = None
     if args.quick:
         scorer = QuickScorer()
     elif mesh is not None:
         from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 
         scorer = ShardedGnnScorer(model, mesh=mesh)
+    else:  # per-snapshot scoring, as gnn-vc (solve()'s default is sticky)
+        scorer = GnnScorer(model, device=args.device)
     res = solve(g, model=model, time_limit=args.time,
                 relable_interval=args.k, verbose=verbose, device=args.device,
                 scorer=scorer,

@@ -38,7 +38,7 @@ from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.solver.checkpoint import save_checkpoint
 
 __all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
-           "gnn_peel", "resolve_device", "solve"]
+           "cover_uncovered_edges", "gnn_peel", "resolve_device", "solve"]
 
 CONF_EPS = 1e-4  # confidence tie width (the reference's GNN_VC.cpp:196)
 
@@ -82,6 +82,25 @@ def confidence_order(prob: np.ndarray, weights: np.ndarray,
     return confidence_order_native(prob, weights, deg, CONF_EPS)
 
 
+def cover_uncovered_edges(cover: np.ndarray, edges: np.ndarray,
+                          weights: np.ndarray) -> int:
+    """Add to ``cover`` (0/1 per vertex, in place) the lighter endpoint (the
+    first on a tie) of each edge that neither endpoint covers, edges taken
+    in order; returns how many vertices were added.
+
+    The peel can leave a kernel edge with both endpoints decided out: the
+    shared native core does so on road1200 when every round is scored per
+    snapshot (the JAX package's solve alike).  The local search would keep
+    that start as its best, since it is cheaper than any cover."""
+    added = 0
+    open_ = (cover[edges[:, 0]] == 0) & (cover[edges[:, 1]] == 0)
+    for u, v in edges[open_]:
+        if cover[u] == 0 and cover[v] == 0:
+            cover[v if weights[v] < weights[u] else u] = 1
+            added += 1
+    return added
+
+
 @dataclasses.dataclass
 class SolveResult:
     solution: np.ndarray        # 0/1 per original vertex
@@ -95,8 +114,9 @@ class SolveResult:
     counters: np.ndarray        # rule-fire counters r1..r8
     ls_steps: int = 0
     assist_stats: Optional[dict] = None
-    # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, and the
-    # scorer's own stats under "scorer"
+    # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, the
+    # scorer's own stats under "scorer", and (with a kernel left)
+    # kernel_edges_uncovered, the vertices cover_uncovered_edges added
     phase1: Optional[dict] = None
 
 
@@ -261,6 +281,8 @@ def solve(
     keep = rows < snap.indices
     kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
     s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
+    split["kernel_edges_uncovered"] = cover_uncovered_edges(s0, kedges,
+                                                            snap.weights)
     ls = CoreLocalSearch(snap.weights, kedges, s0)
 
     assist = None

@@ -18,6 +18,14 @@ the static CSR does not have.  Gadget nodes get a neutral 0.5 (least
 confident, decided last), and the CSR is rebuilt once gadgets exceed 2% of
 the nodes it was built with.
 
+Small rounds go per snapshot, as the JAX package's scorer routes them: once
+the live kernel holds fewer than ``min_live_edges`` directed edges (the JAX
+``tpu_min_edges``, 4,000,000), and on every round when the scorer's device
+is the CPU (the JAX scorer's "no accelerator" case), a round drops the
+sticky state and scores ``core.snapshot()`` with ``GnnScorer`` on the
+scorer's own device; its scores are those of a fresh forward, and fold
+gadgets get real scores.  ``force_sticky=True`` keeps every round sticky.
+
 Every round is scored on the device the caller names.
 """
 
@@ -31,6 +39,7 @@ import torch
 
 from gnn_mwvc_tpu_torch.graph import DeviceGraph
 from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model
+from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer
 
 __all__ = ["StickyGnnScorer"]
 
@@ -38,20 +47,36 @@ __all__ = ["StickyGnnScorer"]
 class StickyGnnScorer:
     """The ``score_core`` protocol of ``gnn_peel``:
     ``score_core(core, weight_scale) -> (ids, prob, w, deg)`` over the
-    currently active nodes, gadget nodes included with prob 0.5."""
+    currently active nodes, gadget nodes included with prob 0.5.
+
+    min_live_edges: below this many live directed edges
+    (``core.live_edges()``) a round is scored per snapshot; the JAX
+    scorer's ``tpu_min_edges``.  force_sticky: never route per snapshot.
+    precision: the sticky forward's ``MWVCModel.forward`` precision.
+    ``stats["rounds"]`` counts the sticky rounds and
+    ``stats["legacy_rounds"]`` the per-snapshot ones, as in JAX.
+    """
 
     def __init__(self, model: MWVCModel | None = None, device="cuda",
-                 compat: bool = True, rebuild_gadget_frac: float = 0.02):
+                 compat: bool = True, rebuild_gadget_frac: float = 0.02,
+                 min_live_edges: int = 4_000_000, force_sticky: bool = False,
+                 precision: str = "highest"):
         self.device = torch.device(device)
         self.model = (model if model is not None
                       else pretrained_model()).to(self.device)
         self.compat = compat
         self.rebuild_gadget_frac = rebuild_gadget_frac
+        self.min_live_edges = min_live_edges
+        self.force_sticky = force_sticky
+        self.precision = precision
+        self._accelerated = self.device.type != "cpu"
+        self._snapshot_scorer = None
         self._state = None  # (dg, snapshot ids, built node-id size, built n)
         self._live = None   # (4, n) device tensor: rows W, NW, D, active
         self._prev = None   # host copies of the raw live state (core-owned)
-        self.stats = {"rebuilds": 0, "rounds": 0, "full_uploads": 0,
-                      "deltas": 0, "seconds_prep": 0.0, "seconds_device": 0.0}
+        self.stats = {"rebuilds": 0, "rounds": 0, "legacy_rounds": 0,
+                      "full_uploads": 0, "deltas": 0, "seconds_prep": 0.0,
+                      "seconds_device": 0.0, "seconds_legacy": 0.0}
 
     def _rebuild(self, core):
         snap = core.snapshot()
@@ -107,11 +132,36 @@ class StickyGnnScorer:
                                       degrees=live[2])
         x = (live[0] / weight_scale * mask).reshape(-1, 1)
         out = self.model(x, dg_live, weight_scale, compat=self.compat,
-                         x_is_node_weights=True, source_mask=mask)
+                         precision=self.precision, x_is_node_weights=True,
+                         source_mask=mask)
         return out[:, 0].cpu().numpy()
+
+    def _per_snapshot(self, core) -> bool:
+        """Whether this round leaves the sticky path (JAX
+        ``static_score.py:365-369``)."""
+        return not self.force_sticky and (
+            not self._accelerated
+            or core.live_edges() < self.min_live_edges)
+
+    def _score_snapshot(self, core, weight_scale: float):
+        """One forward over the compacted snapshot on the scorer's
+        device; the sticky state is dropped (rebuilt if a later round is
+        sticky again)."""
+        t0 = time.perf_counter()
+        self._state = self._live = self._prev = None
+        if self._snapshot_scorer is None:
+            self._snapshot_scorer = GnnScorer(self.model, self.device,
+                                              self.compat)
+        snap = core.snapshot()
+        prob = self._snapshot_scorer(snap, weight_scale)
+        self.stats["legacy_rounds"] += 1
+        self.stats["seconds_legacy"] += time.perf_counter() - t0
+        return snap.ids, prob, snap.weights, snap.deg
 
     @torch.no_grad()
     def score_core(self, core, weight_scale: float):
+        if self._per_snapshot(core):
+            return self._score_snapshot(core, weight_scale)
         t0 = time.perf_counter()
         if self._needs_rebuild(core):
             self._rebuild(core)

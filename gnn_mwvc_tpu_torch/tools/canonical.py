@@ -1,6 +1,6 @@
-"""Canonical-protocol run: the reference's 1000 s cutoff with the defaults of
-``gnn-vc-torch`` (clustered relabel, sticky scoring, the device assist when
-the solve runs on a card).  Prints the reference CSV line
+"""Canonical-protocol run: the reference's 1000 s cutoff with the JAX tool's
+settings (clustered relabel, the sticky scorer with its per-snapshot routing
+of small rounds, the device assist when the solve runs on a card).  Prints the reference CSV line
 ``[graph],[VC written],[best seen],[time to best]`` and then a JSON record,
 after checking that the written cover is valid and costs what it says.
 The record has the JAX tool's keys (no relay probe); its ``scorer`` holds

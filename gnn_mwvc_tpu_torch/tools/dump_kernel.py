@@ -13,10 +13,9 @@ scores the kernel for its phase-2 assist.  The JAX tool instead asks its
 sticky scorer again after the unfold.  Below 4,000,000 live edges that
 scorer routes to the per-snapshot forward, which gives the same scores;
 above, it answers from its last build's CSR, where kernel vertices outside
-that build keep 0.5.  The port's sticky scorer does not route (ROADMAP
-queue 3), so on small instances its peel and kernel differ from the JAX
-tool's; the CPU parity test peels with ``GnnScorer`` in its place, as the
-JAX package does there.
+that build keep 0.5.  Both packages' sticky scorers route alike (below
+4,000,000 live edges, and on every round on the CPU), so the two tools peel
+to the same kernel.
 
 Usage:
     python -m gnn_mwvc_tpu_torch.tools.dump_kernel road900 [--out PATH]

@@ -46,7 +46,9 @@ def main(argv=None):
     g = road_instance(args.instance)
     print(f"{args.instance}: n={g.n} m={g.m}", flush=True)
     mesh = make_mesh(args.parts, devices=[device] * args.parts)
-    sh = ShardedGnnScorer(mesh=mesh, rebuild_gadget_frac=0.0)
+    # min_nodes=0: every round on the mesh, at any size, as the JAX tool's
+    # CPU mesh runs it
+    sh = ShardedGnnScorer(mesh=mesh, rebuild_gadget_frac=0.0, min_nodes=0)
     t0 = time.perf_counter()
     res_s = solve(g, time_limit=0.0, reorder=True, scorer=sh,
                   device_assist=False, device=device)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from gnn_mwvc_tpu_torch.models.gnn import (MWVCModel, build_reference_arch,
-                                           init_params)
+                                           init_params, matmul_precision)
 from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.train.data import TrainSample
 
@@ -138,7 +138,8 @@ def train(samples: Sequence[TrainSample], cfg: TrainConfig = TrainConfig(),
         for i in order:
             s = train_set[i]
             sse, _ = loss_and_metrics(model, s, cfg.weight_scale, cfg.compat)
-            sse.backward()
+            with matmul_precision("highest"):  # the products' gradients
+                sse.backward()
             if t > cfg.batch_vertices:
                 _sgd_step(opt, t)
                 steps += 1

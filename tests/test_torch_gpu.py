@@ -354,3 +354,55 @@ def test_sharded_forward_on_four_shards_of_one_card(cuda):
                          ws).cpu().numpy()
     np.testing.assert_allclose(outs["cuda:0"], single, atol=1e-6, rtol=0)
     np.testing.assert_allclose(outs["cuda:0"], outs["cpu"], atol=1e-6, rtol=0)
+
+
+def test_precision_on_cuda_is_scoped(cuda):
+    """"default" (TF32) then "highest" on the card: "highest" gives its
+    first bits again, and the process's TF32 flag is what it was after each
+    call, also when it was switched on before."""
+    from gnn_mwvc_tpu_torch.models import pretrained_model
+
+    flags = torch.backends.cuda.matmul
+    name = "fp32_precision" if hasattr(flags, "fp32_precision") \
+        else "allow_tf32"
+    before = getattr(flags, name)
+    g = build_road_graph(200)
+    dg = DeviceGraph.from_graph(g, cuda)
+    ws = float(g.weights.max())
+    model = pretrained_model(cuda)
+    x = (dg.weights / ws).reshape(-1, 1)
+    try:
+        for state in (before, "tf32" if name == "fp32_precision" else True):
+            setattr(flags, name, state)
+            state = getattr(flags, name)
+            with torch.no_grad():
+                first = model(x, dg, ws, x_is_node_weights=True)
+                assert getattr(flags, name) == state
+                tf32 = model(x, dg, ws, x_is_node_weights=True,
+                             precision="default")
+                assert getattr(flags, name) == state
+                again = model(x, dg, ws, x_is_node_weights=True,
+                              precision="highest")
+                assert getattr(flags, name) == state
+            assert torch.equal(again, first)
+            assert torch.allclose(tf32, first, atol=1e-2, rtol=0)
+    finally:
+        setattr(flags, name, before)
+
+
+def test_sticky_rounds_under_the_threshold_run_on_cuda(cuda):
+    """road100 (under 4M live edges): every round per snapshot, on the
+    card, with K1's two launches each."""
+    from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+
+    g = build_road_graph(100)
+    scorer = StickyGnnScorer(device=cuda)
+    _build.launches.clear()
+    res = solve(g, time_limit=0.0, device=cuda, scorer=scorer,
+                device_assist=False)
+    rounds = res.phase1["rounds"]
+    assert is_vertex_cover(g, res.solution)
+    assert scorer.stats["legacy_rounds"] == rounds > 0
+    assert scorer.stats["rounds"] == 0
+    assert scorer._snapshot_scorer.device.type == "cuda"
+    assert _build.launches["csr_aggregate"] == 2 * rounds

@@ -133,6 +133,19 @@ def test_port_imports_no_jax():
         "assert scaling_weak.main(['--side', '20', '--er-n', '400', '--parts',\n"
         "                          '1,2', *out('w.json')]) == 0\n"
         "assert reduce_scale.main(['--side', '20', *out('r.json')]) == 0\n"
+        "from gnn_mwvc_tpu_torch.tools import (precision_study,\n"
+        "    smallsolve_bench, train_quality)\n"
+        "from gnn_mwvc_tpu_torch.graph import build_road_graph\n"
+        "assert precision_study.main(['--side', '20', '--iters', '1',\n"
+        "                             '--batches', '1', *out('p.json')]) == 0\n"
+        "assert smallsolve_bench.main(['--batch', '2', '--bursts', '1',\n"
+        "                              '--per', '1', *out('b.json')]) == 0\n"
+        "train_quality.corpus = lambda rng=None: [\n"
+        "    ('grid0', build_road_graph(40, seed=300))] * 2\n"
+        "train_quality.heldout = lambda: [('g30', build_road_graph(30))]\n"
+        "assert train_quality.main(['--epochs', '0', '--label-budget', '0.1',\n"
+        "    '--eval-budget', '0.1', '--workdir', os.path.join(tmp, 'tq'),\n"
+        "    *out('q.json')]) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.') or m == 'bench'\n"

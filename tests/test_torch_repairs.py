@@ -91,7 +91,7 @@ def test_sticky_rebuild_takes_the_snapshot_nw(sharded, monkeypatch):
 
     monkeypatch.setattr(graph_module, "neighbour_weight_sum", refuse)
     scorer = (ShardedGnnScorer(mesh=make_mesh(2, devices=["cpu"] * 2))
-              if sharded else StickyGnnScorer(device="cpu"))
+              if sharded else StickyGnnScorer(device="cpu", force_sticky=True))
     core = CoreSolver(g.weights, g.edge_array())
     _ids, prob, _w, _d = scorer.score_core(core, float(g.weights.max()))
     assert scorer.stats["rebuilds"] == 1 and np.isfinite(prob).all()

@@ -186,7 +186,8 @@ def test_sticky_sharded_forward_matches_sticky_scorer(side, frac):
     cb = CoreSolver(g.weights, g.edge_array())
     ca.reduce()
     cb.reduce()
-    single = StickyGnnScorer(device="cpu", rebuild_gadget_frac=frac)
+    single = StickyGnnScorer(device="cpu", rebuild_gadget_frac=frac,
+                             force_sticky=True)
     sharded = ShardedGnnScorer(mesh=_cpu_mesh(4), rebuild_gadget_frac=frac)
     rounds = 0
     while True:

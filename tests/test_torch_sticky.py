@@ -27,7 +27,8 @@ def _drive(gj, rebuild_gadget_frac):
     ct.reduce()
     js = JaxSticky(force_sticky=True, warm_overlap=False,
                    rebuild_gadget_frac=rebuild_gadget_frac)
-    ts = StickyGnnScorer(device="cpu", rebuild_gadget_frac=rebuild_gadget_frac)
+    ts = StickyGnnScorer(device="cpu", rebuild_gadget_frac=rebuild_gadget_frac,
+                         force_sticky=True)
     rounds = neutral = 0
     while True:
         cj.solve_small_components(75)
@@ -78,7 +79,7 @@ def test_sticky_matches_fresh_after_removals():
     ws = float(gj.weights.max())
     ct = CoreSolver(gj.weights, gj.edge_array(), num_rules=0)
     cj = JaxCore(gj.weights, gj.edge_array(), num_rules=0)
-    ts = StickyGnnScorer(device="cpu")
+    ts = StickyGnnScorer(device="cpu", force_sticky=True)
     js = JaxSticky(force_sticky=True, warm_overlap=False)
     assert len(ts.score_core(ct, ws)[0]) == ct.active_count
     js.score_core(cj, ws)
