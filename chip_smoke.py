@@ -105,6 +105,17 @@ non-zero:
                smallsolve_bench at B = 1024: K4 bitwise equal to its plain
                version (n = 16, 20) and to the enumeration (n = 16), then ms
                and regions/s of each
+  13. last surfaces - (a) python -m gnn_mwvc_tpu_torch.bench as a
+               subprocess: one JSON line with the JAX bench's keys, K1
+               launched; its edges/s; (b) entry() on cuda:0: within 2e-5 of
+               the plain forward on CPU copies, K1 launched; (c) road1200's
+               cluster_order relabel, native (Graph.reorder) and numpy
+               (reorder_plain): equal CSRs, seconds of each; (d) solve() on
+               road1200 at time 0 with every per-snapshot round scored by the
+               card's GnnScorer and also by the native CPU forward: within
+               2e-5, ms of each per round and the size where they cross; (e)
+               tools.kernel_dump on road300 (cut from road900) and
+               tools.ls_run --variant perturb on its file for 10 s
 Then one JSON line of launch counts by path, one of per-kernel numbers, one
 of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
 2^16 enumeration, which are not hand kernels), and as the last line
@@ -1649,6 +1660,166 @@ def phase_study_tools(side):
             ("precision_study", "train_quality", "smallsolve_bench")}
 
 
+LAST_DUMP_SIDE = 300        # phase 13e's kernel_dump instance (cut from road900)
+LAST_LS_TIME = 10.0         # phase 13e's ls_run budget, seconds (perturb)
+
+
+class TimedSnapshotScorer:
+    """Phase 13d: the sticky scorer's per-snapshot scorer on the card, which
+    also runs the native CPU forward on each snapshot; it returns the
+    card's scores, so the peel is the card's.  ``rows``: per round
+    (nodes, directed edges, card s, native s, max |diff|)."""
+
+    def __init__(self, card_scorer):
+        self.card = card_scorer
+        self.device = card_scorer.device
+        self.rows = []
+
+    def __call__(self, snap, weight_scale):
+        import torch
+
+        from gnn_mwvc_tpu_torch.core import cpu_forward_native
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob = self.card(snap, weight_scale)
+        t1 = time.perf_counter()
+        native = cpu_forward_native(snap, self.card.model, weight_scale)
+        t2 = time.perf_counter()
+        diff = float(abs(prob - native).max()) if snap.n else 0.0
+        self.rows.append((int(snap.n), int(snap.indptr[-1]), t1 - t0,
+                          t2 - t1, diff))
+        return prob
+
+
+def phase_last_surfaces(torch, g):
+    """Phase 13: the bench line, entry(), the native relabel, the card's
+    per-snapshot rounds beside the native CPU forward, and the kernel-dump
+    / local-search tools.  Returns the launch counts by entry point."""
+    import tempfile
+
+    import numpy as np
+
+    from gnn_mwvc_tpu_torch import entry as port_entry
+    from gnn_mwvc_tpu_torch.core import cluster_order
+    from gnn_mwvc_tpu_torch.graph import DeviceGraph, reorder_plain
+    from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc_tpu_torch.models import pretrained_model
+    from gnn_mwvc_tpu_torch.ops import _build
+    from gnn_mwvc_tpu_torch.parallel.dryrun import synthetic_graph
+    from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer, solve
+    from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+
+    t_phase = time.perf_counter()
+    k1 = "csr_aggregate"
+    mod = "gnn_mwvc_tpu_torch."
+    counts = {}
+    # (a) bench and (e) kernel_dump + ls_run, one subprocess
+    with tempfile.TemporaryDirectory(prefix="mwvc_last_") as tmp:
+        stem = os.path.join(tmp, f"k_road{LAST_DUMP_SIDE}")
+        texts = run_surfaces([
+            ("bench", mod + "bench", [], (k1,)),
+            ("kernel_dump", mod + "tools.kernel_dump",
+             ["--instance", f"road{LAST_DUMP_SIDE}", "--out", stem], (k1,)),
+            ("ls_run", mod + "tools.ls_run",
+             [stem + ".kern", "--time", LAST_LS_TIME, "--variant", "perturb"],
+             ()),
+        ])
+    lines = texts["bench"].strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    if len(lines) != 1 or list(rec) != ["metric", "value", "unit",
+                                        "vs_baseline"] \
+            or rec["metric"] != "gnn_score_edges_per_s" or rec["value"] <= 0:
+        fail(f"bench: want one JSON line with the bench keys: {lines}")
+    print(f"bench (road1200 cluster_order, unmasked forward, highest, best of "
+          f"4 x 5 chained calls): {rec['value']:,} edges/s, vs_baseline "
+          f"{rec['vs_baseline']}; K1 launches "
+          f"{SURFACE_LAUNCHES['bench'].get(k1)}")
+    (dump,) = json_lines(texts["kernel_dump"])
+    ls = [ln.split(",") for ln in texts["ls_run"].strip().splitlines()]
+    init, final = ls[0], ls[-1]
+    if init[0] != "init" or final[0] != "final" or \
+            int(final[3]) > int(init[3]) or int(final[1]) < 1:
+        fail(f"ls_run: init {init}, final {final}, dump {dump}")
+    print(f"kernel_dump road{LAST_DUMP_SIDE}: kernel n={dump['n']} "
+          f"m={dump['m']}, initial_cost {dump['initial_cost']}, cost after "
+          f"the peel {dump['cost_after_peel']}, phase 1 {dump['t_phase1']:.3f}"
+          f" s in {dump['rounds']} rounds; ls_run perturb {LAST_LS_TIME:g} s: "
+          f"{final[1]} steps, best {final[3]} (from {init[3]}), best_seen "
+          f"{final[4]}, {final[5]} steps/s, "
+          f"{sum(r[0] == 'div' for r in ls)} kicks")
+
+    # (b) entry() on the card against the plain forward on CPU copies
+    fn, (model, dg, ws) = port_entry.entry("cuda:0")
+    _build.launches.clear()
+    out = fn(model, dg, ws)
+    torch.cuda.synchronize()
+    counts["entry"] = dict(_build.launches)
+    g_cpu = synthetic_graph()
+    plain = fn(pretrained_model("cpu"), DeviceGraph.from_graph(g_cpu, "cpu"),
+               ws)
+    err = float((out.cpu() - plain).abs().max())
+    if counts["entry"].get(k1, 0) < 2 or err > 2e-5 or \
+            not bool(torch.isfinite(out).all()):
+        fail(f"entry: K1 launches {counts['entry']}, max |diff| {err}")
+    print(f"entry (cuda:0, 4096 nodes, degree 16): max |diff| vs the plain "
+          f"forward on CPU copies {err:.3g}; launches {counts['entry']}")
+
+    # (c) the native relabel against the numpy one, road1200
+    t0 = time.perf_counter()
+    perm = cluster_order(g.indptr, g.indices)
+    t1 = time.perf_counter()
+    native = g.reorder(perm)
+    t2 = time.perf_counter()
+    plain_g = reorder_plain(g, perm)
+    t3 = time.perf_counter()
+    if not (np.array_equal(native.indptr, plain_g.indptr)
+            and np.array_equal(native.indices, plain_g.indices)
+            and np.array_equal(native.weights, plain_g.weights)):
+        fail("reorder: the native relabel's CSR differs from the numpy one")
+    print(f"reorder road{ROAD_SIDE} (n={g.n}, {len(g.indices)} directed "
+          f"edges): cluster_order {t1 - t0:.3f} s, native relabel "
+          f"{t2 - t1:.3f} s, numpy relabel {t3 - t2:.3f} s; CSRs equal")
+    del native, plain_g
+
+    # (d) each per-snapshot round of a road1200 phase 1: the card's
+    # GnnScorer beside the native CPU forward on the same snapshot
+    scorer = StickyGnnScorer(device="cuda")
+    timed = TimedSnapshotScorer(GnnScorer(scorer.model, "cuda"))
+    scorer._snapshot_scorer = timed
+    _build.launches.clear()
+    res = solve(g, time_limit=0, device="cuda", scorer=scorer,
+                device_assist=False)
+    counts["solve_split"] = dict(_build.launches)
+    if not is_vertex_cover(g, res.solution) or \
+            cover_cost(g, res.solution) != res.cost:
+        fail("per-snapshot split: solve() wrote an invalid cover")
+    rows = timed.rows
+    if not rows or len(rows) != scorer.stats["legacy_rounds"]:
+        fail(f"per-snapshot split: {len(rows)} rows for "
+             f"{scorer.stats['legacy_rounds']} per-snapshot rounds")
+    worst = max(r[4] for r in rows)
+    if worst > 2e-5:
+        fail(f"per-snapshot split: the card and the native forward differ "
+             f"by {worst}")
+    card_wins = [r[1] for r in rows if r[2] < r[3]]
+    native_wins = [r[1] for r in rows if r[3] <= r[2]]
+    for n, e, tc, tn, d in sorted(rows, key=lambda r: -r[1]):
+        print(f"  snapshot n={n} e={e}: card GnnScorer {tc * 1e3:.3f} ms, "
+              f"native CPU forward {tn * 1e3:.3f} ms, max |diff| {d:.3g}")
+    print(f"per-snapshot rounds of road{ROAD_SIDE} phase 1 (time 0, cost "
+          f"{res.cost}, {scorer.stats['rounds']} sticky + {len(rows)} per "
+          f"snapshot): card {sum(r[2] for r in rows):.3f} s, native "
+          f"{sum(r[3] for r in rows):.3f} s in all ({os.cpu_count()} host "
+          f"threads); max |diff| {worst:.3g}; the card is faster from "
+          f"{min(card_wins) if card_wins else None} directed edges, the "
+          f"native forward up to {max(native_wins) if native_wins else None}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.3f} s")
+    return {"bench": SURFACE_LAUNCHES["bench"],
+            "kernel_dump": SURFACE_LAUNCHES["kernel_dump"],
+            "ls_run": SURFACE_LAUNCHES["ls_run"], **counts}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", type=float, default=150.0,
@@ -1742,7 +1913,6 @@ def main():
 
     # 10. the multi-device path on the one card
     by_path = phase_sharded(torch, g, args.seed)
-    del g
     torch.cuda.empty_cache()
 
     # 11. the port's tools
@@ -1751,10 +1921,15 @@ def main():
     # 12. the precision, training-quality and small-solve studies
     by_path["study_tools"] = phase_study_tools(args.side)
 
+    # 13. the bench line, entry(), the native relabel and forward, and the
+    # kernel-dump / local-search tools
+    by_path["last_surfaces"] = phase_last_surfaces(torch, g)
+    del g
+
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
     by_path = {"solve": launches, "train": train_launches, **by_path}
-    print(f"smoke: phases 1-12 in {time.perf_counter() - t_start:.3f} s")
+    print(f"smoke: phases 1-13 in {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",

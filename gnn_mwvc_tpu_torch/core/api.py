@@ -7,12 +7,12 @@ headers beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at
 first use.  The sources are only read; no Python of the JAX package runs and
 nothing is written next to them.  These bindings cover what the port calls:
 the kernelisation engine (``CoreSolver``), the phase-2 local search
-(``CoreLocalSearch``), two orderings, and the constructions and baseline
-solvers behind the approximation solver, the ablation grid and
-``mwvc-baseline-torch``.  Not bound: the JAX bindings' native relabel and
-CPU forward (``relabel_csr``, ``cpu_forward_native``), which no caller of the
-port needs, and the windowed-MXU plans (``pair_order``, ``blocked_pack``),
-which K1 replaced.
+(``CoreLocalSearch``), two orderings, the CSR relabel behind
+``Graph.reorder`` (``relabel_csr``), the threaded CPU forward that scores
+snapshots on the host (``cpu_forward_native``), and the constructions and
+baseline solvers behind the approximation solver, the ablation grid and
+``mwvc-baseline-torch``.  Not bound: the windowed-MXU plans
+(``pair_order``, ``blocked_pack``), which K1 replaced.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 
 __all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
            "bfs_order", "confidence_order_native", "cluster_order",
-           "improve_cover",
+           "cpu_forward_native", "improve_cover", "relabel_csr",
            "approx_cover", "greedy_cover", "baseline_solve", "BASELINE_IDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +76,10 @@ _SIGNATURES = {
     "mwvc_bfs_order": ([ct.c_uint32, u64p, u32p, u32p], None),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
                            None),
+    "mwvc_relabel_csr": ([ct.c_uint32, u64p, u32p, u32p, u64p, u32p], None),
+    "mwvc_cpu_forward": ([ct.c_uint32, u64p, u32p, u32p, u64p, u32p,
+                          ct.c_float, ct.c_uint32, i8p, i32p, f32p, f32p,
+                          ct.c_uint32], None),
     "mwvc_confidence_order": ([ct.c_uint32, f32p, u64p, u32p, ct.c_double,
                                u32p], None),
     "mwvc_peel": ([_c, u32p, f32p, ct.c_uint64, ct.c_int, ct.c_uint32],
@@ -506,6 +510,92 @@ def cluster_order(indptr, indices, cluster_size=128):
     perm = np.empty(n, dtype=np.uint32)
     lib.mwvc_cluster_order(n, indptr, indices, cluster_size, perm)
     return perm
+
+
+def relabel_csr(indptr, indices, perm):
+    """The symmetric CSR under a vertex permutation (perm[i] = the old id
+    placed at new position i), each row's indices sorted; returns (indptr,
+    indices) as int64."""
+    lib = _load()
+    n = len(indptr) - 1
+    perm = np.ascontiguousarray(perm, dtype=np.uint32)
+    # the native loop indexes by perm unchecked
+    if len(perm) != n or (n and (np.bincount(perm, minlength=n) != 1).any()):
+        raise ValueError(f"perm is not a permutation of {n} vertices")
+    indptr = np.ascontiguousarray(indptr, dtype=np.uint64)
+    indices = np.ascontiguousarray(indices, dtype=np.uint32)
+    out_indptr = np.empty(n + 1, dtype=np.uint64)
+    out_indices = np.empty(len(indices), dtype=np.uint32)
+    lib.mwvc_relabel_csr(n, indptr, indices, perm, out_indptr, out_indices)
+    return out_indptr.astype(np.int64), out_indices.astype(np.int64)
+
+
+_KIND_CODES = {"graph": 0, "linear": 1, "relu": 2, "sigmoid": 3}
+_NATIVE_WIDTH = 36  # cpuforward.hpp's row stride: no layer may be wider
+
+
+def _pack_model(model):
+    """(kinds i8, dims i32, params f32) blobs of an ``MWVCModel`` for
+    ``mwvc_cpu_forward``: each linear layer's (din, dout) and its weight,
+    row-major (din, dout) as the JAX package stores it, then its bias.
+
+    The blobs are kept on the model beside every parameter (the object
+    itself, so its address cannot be reused) and its version counter, so
+    a parameter changed in place (an optimiser step, ``load_state_dict``,
+    ``copy_``) or replaced packs again.  A write through ``.data``
+    bypasses the version counter and is not seen."""
+    params = list(model.parameters())
+    key = [(p, p._version) for p in params]
+    hit = getattr(model, "_native_pack", None)
+    if hit is not None and len(hit[0]) == len(key) and all(
+            p is q and v == w for (p, v), (q, w) in zip(hit[0], key)):
+        return hit[1]
+    kinds = np.array([_KIND_CODES[k] for k in model.kinds], np.int8)
+    dims, blobs = [], []
+    width = 1
+    linears = iter(model.linears)
+    for kind in model.kinds:
+        if kind == "graph":
+            width = 2 * width + 3
+        elif kind == "linear":
+            lin = next(linears)
+            if lin.in_features != width:
+                raise ValueError(f"a linear layer takes {lin.in_features} "
+                                 f"columns where {width} arrive")
+            width = lin.out_features
+            dims += [lin.in_features, lin.out_features]
+            blobs += [lin.weight.detach().cpu().numpy().T.ravel(),
+                      lin.bias.detach().cpu().numpy()]
+        if width > _NATIVE_WIDTH:
+            raise ValueError(f"a layer {width} wide exceeds the native "
+                             f"forward's {_NATIVE_WIDTH} columns")
+    packed = (kinds, np.array(dims, np.int32),
+              np.concatenate(blobs).astype(np.float32))
+    model._native_pack = (key, packed)
+    return packed
+
+
+def cpu_forward_native(snap, model, weight_scale, n_threads=None):
+    """The model's scores of a core ``Snapshot`` from the threaded C++
+    forward (``cpuforward.hpp``): ``MWVCModel.forward`` with
+    ``compat=True`` and ``x_is_node_weights=True`` on the host, without a
+    ``DeviceGraph`` build.  Rows are independent, so the thread count
+    (default: the host's cores) does not change a bit of the result."""
+    lib = _load()
+    n = int(snap.n)
+    if n == 0:
+        return np.zeros(0, np.float32)
+    kinds, dims, params = _pack_model(model)
+    out = np.empty(n, np.float32)
+    lib.mwvc_cpu_forward(
+        n, np.ascontiguousarray(snap.indptr, np.uint64),
+        np.ascontiguousarray(snap.indices, np.uint32),
+        np.ascontiguousarray(snap.weights, np.uint32),
+        np.ascontiguousarray(snap.nw, np.uint64),
+        np.ascontiguousarray(snap.deg, np.uint32),
+        float(weight_scale), len(kinds), kinds, dims, params, out,
+        int(n_threads or os.cpu_count() or 1))
+    return out
 
 
 def improve_cover(weights, edges, vc):

@@ -16,8 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from gnn_mwvc_tpu_torch.core import relabel_csr
+
 __all__ = ["Graph", "DeviceGraph", "build_road_graph", "neighbour_weight_sum",
-           "powerlaw_graph", "random_graph"]
+           "powerlaw_graph", "random_graph", "reorder_plain"]
 
 
 def neighbour_weight_sum(weights_f32: np.ndarray, rows: np.ndarray,
@@ -40,7 +42,7 @@ class Graph:
     duplicates, reversed pairs and self-loops are canonicalised away.
     """
 
-    __slots__ = ("n", "m", "weights", "indptr", "indices")
+    __slots__ = ("n", "m", "weights", "indptr", "indices", "_nw")
 
     def __init__(self, weights: np.ndarray, edges: np.ndarray | None):
         weights = np.asarray(weights)
@@ -64,10 +66,32 @@ class Graph:
         self.indptr = np.zeros(self.n + 1, dtype=np.int64)
         np.cumsum(np.bincount(row, minlength=self.n), out=self.indptr[1:])
         self.indices = col.astype(np.int64)
+        self._nw = None
+
+    @classmethod
+    def from_csr(cls, weights, indptr, indices) -> "Graph":
+        """Wrap a symmetric CSR with sorted rows as it is (not checked)."""
+        g = cls.__new__(cls)
+        g.weights = np.asarray(weights)
+        g.n = int(len(g.weights))
+        g.indptr = np.asarray(indptr, dtype=np.int64)
+        g.indices = np.asarray(indices, dtype=np.int64)
+        g.m = int(len(g.indices) // 2)
+        g._nw = None
+        return g
 
     @property
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    @property
+    def neighborhood_weights(self) -> np.ndarray:
+        """NW(u), the exact int64 sum of u's neighbours' weights (cached)."""
+        if self._nw is None:
+            nw = np.zeros(self.n, dtype=np.int64)
+            np.add.at(nw, self.row_ids(), self.weights[self.indices])
+            self._nw = nw
+        return self._nw
 
     def row_ids(self) -> np.ndarray:
         """Expanded row index per CSR entry."""
@@ -83,15 +107,24 @@ class Graph:
         return np.stack([rows[keep], self.indices[keep]], axis=1)
 
     def reorder(self, perm: np.ndarray) -> "Graph":
-        """Relabel vertices: perm[i] = old id placed at new position i."""
+        """Relabel vertices: perm[i] = old id placed at new position i.
+        The native core relabels the CSR row by row (``relabel_csr``)."""
         perm = np.asarray(perm, dtype=np.int64)
-        inv = np.empty(self.n, dtype=np.int64)
-        inv[perm] = np.arange(self.n)
-        e = inv[self.edge_array()]
-        return Graph(self.weights[perm], np.sort(e, axis=1))
+        indptr, indices = relabel_csr(self.indptr, self.indices, perm)
+        return Graph.from_csr(self.weights[perm], indptr, indices)
 
     def __repr__(self) -> str:
         return f"Graph(n={self.n}, m={self.m})"
+
+
+def reorder_plain(g: Graph, perm: np.ndarray) -> Graph:
+    """``g.reorder(perm)`` in numpy: the edges relabelled and
+    re-canonicalised through ``Graph``: the same CSR as ``reorder``, found
+    another way, which the tests hold the native relabel against."""
+    perm = np.asarray(perm, dtype=np.int64)
+    inv = np.empty(g.n, dtype=np.int64)
+    inv[perm] = np.arange(g.n)
+    return Graph(g.weights[perm], np.sort(inv[g.edge_array()], axis=1))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,11 +22,12 @@ Small rounds go per snapshot, as the JAX package's scorer routes them: once
 the live kernel holds fewer than ``min_live_edges`` directed edges (the JAX
 ``tpu_min_edges``, 4,000,000), and on every round when the scorer's device
 is the CPU (the JAX scorer's "no accelerator" case), a round drops the
-sticky state and scores ``core.snapshot()`` with ``GnnScorer`` on the
-scorer's own device; its scores are those of a fresh forward, and fold
-gadgets get real scores.  ``force_sticky=True`` keeps every round sticky.
-
-Every round is scored on the device the caller names.
+sticky state and scores ``core.snapshot()`` with ``GnnScorer``; its scores
+are those of a fresh forward, and fold gadgets get real scores.  On a card
+that round runs on the card (K1).  On the CPU it runs the threaded C++
+forward (``GnnScorer(native=True)``), as the JAX scorer's rounds do, so the
+scores are the JAX package's bit for bit.  ``force_sticky=True`` keeps
+every round sticky.
 """
 
 from __future__ import annotations
@@ -56,6 +57,10 @@ class StickyGnnScorer:
     ``stats["rounds"]`` counts the sticky rounds and
     ``stats["legacy_rounds"]`` the per-snapshot ones, as in JAX.
     """
+
+    # per-snapshot rounds on the CPU through the C++ forward (JAX
+    # ``static_score.py:345-349``)
+    native_snapshots = True
 
     def __init__(self, model: MWVCModel | None = None, device="cuda",
                  compat: bool = True, rebuild_gadget_frac: float = 0.02,
@@ -144,14 +149,15 @@ class StickyGnnScorer:
             or core.live_edges() < self.min_live_edges)
 
     def _score_snapshot(self, core, weight_scale: float):
-        """One forward over the compacted snapshot on the scorer's
-        device; the sticky state is dropped (rebuilt if a later round is
-        sticky again)."""
+        """One forward over the compacted snapshot: on the scorer's card,
+        or on the host; the sticky state is dropped (rebuilt if a later
+        round is sticky again)."""
         t0 = time.perf_counter()
         self._state = self._live = self._prev = None
         if self._snapshot_scorer is None:
-            self._snapshot_scorer = GnnScorer(self.model, self.device,
-                                              self.compat)
+            self._snapshot_scorer = GnnScorer(
+                self.model, self.device, self.compat,
+                native=self.native_snapshots)
         snap = core.snapshot()
         prob = self._snapshot_scorer(snap, weight_scale)
         self.stats["legacy_rounds"] += 1

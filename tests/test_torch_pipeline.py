@@ -146,6 +146,16 @@ def test_port_imports_no_jax():
         "assert train_quality.main(['--epochs', '0', '--label-budget', '0.1',\n"
         "    '--eval-budget', '0.1', '--workdir', os.path.join(tmp, 'tq'),\n"
         "    *out('q.json')]) == 0\n"
+        "# the bench line, entry() and the kernel-dump / local-search tools\n"
+        "os.environ.update(BENCH_SIDE='20', BENCH_ITERS='1', BENCH_BATCHES='1')\n"
+        "from gnn_mwvc_tpu_torch import bench as port_bench, entry\n"
+        "from gnn_mwvc_tpu_torch.tools import kernel_dump, ls_run\n"
+        "assert port_bench.main(['--device', 'cpu']) == 0\n"
+        "assert entry.main(['--device', 'cpu']) == 0\n"
+        "stem = os.path.join(tmp, 'k20')\n"
+        "assert kernel_dump.main(['--instance', 'road20', '--out', stem,\n"
+        "                         '--device', 'cpu']) == 0\n"
+        "assert ls_run.main([stem + '.kern', '--steps', '5000']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.') or m == 'bench'\n"
