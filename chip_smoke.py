@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA port (gnn_mwvc_tpu_torch) on one GPU.
+"""Smoke test of the PyTorch + CUDA port (gnn_mwvc_tpu_torch) on one GPU,
+and on several where the machine has them (phase 14).
 
 Run from the repository root:  python3 chip_smoke.py [--time SECONDS]
+                               python3 chip_smoke.py --multi-card
+(``--multi-card``: phases 1, 2 and 14 alone; it fails on fewer than 2 cards)
 
 Phases, each printing one line of its own numbers; any failure exits
 non-zero:
@@ -67,7 +70,8 @@ non-zero:
                masked sticky-sharded forward of the published model with
                every shard's K1 output bitwise equal to its rows of the
                single-device K1 output, scores within 1e-5, 2 x P K1
-               launches, ms beside the single-device forward; (b) solve()
+               launches, ms beside the single-device forward (host clock
+               between synchronises of every card); (b) solve()
                at time_limit=0 with ShardedGnnScorer over 4 shards of cuda:0,
                a valid cover, K1 launched in every mesh round, its cost
                beside a single-device phase-1 solve's; (c) 2 steps of the
@@ -95,7 +99,22 @@ non-zero:
                K1's device ms beside its HBM bound and torch.sparse.mm, K1
                within 1e-4 of its plain version; (f) scale_bench and
                scaling_weak: sharded scores within 1e-5 of one device's;
-               (g) reduce_scale at side 450: both kernel sizes and times
+               (g) reduce_scale at side 450: both kernel sizes and times;
+               (d) and (f) pass --device cuda:0, all P shards on the card
+  14. multi-card - only with 2 or more cards (else one line says it did not
+               run), P = 2 and 4 up to the card count, on the road-like
+               graph: (a) phase 10a's checks with shard i on cuda:i, each
+               K1 output on its shard's card, ms beside P shards of cuda:0
+               and one device; (b) phase 10b with a card per shard beside
+               4 shards of cuda:0 and one device, K1 on every card in the
+               mesh rounds; (c) phase 10c on 4 cards, K1's backward on every
+               card; (d) NCCL, a rank per card (parallel.dryrun dist): rows
+               within 1e-5 of each rank's single-card forward, K1 on every
+               rank, equal losses within 1e-5 of (c)'s first; (e) the same
+               for 2 ranks x 2 cards; (f) gnn-vc-torch --shards 4 on road300
+               (K1 and K4), sharded_solve, scale_bench and scaling_weak
+               with --device cuda (a card per shard; identical covers, rows
+               within 1e-5) and entry multichip 4, as subprocesses
   12. studies - in one subprocess on the card: (a) precision_study on the
                road-like graph relabelled by cluster_order: ms, edges/s and
                error vs the CPU fp32 forward at highest / mixed / default
@@ -1031,7 +1050,7 @@ def phase_surfaces(seed):
 
 SHARD_COUNTS = (2, 4)       # phase 10's shards on the one card
 DIST_SIDE = 300             # phase 10d's road-like graph over 2 gloo ranks
-DIST_TIMEOUT = 300          # seconds for the gloo world to finish
+DIST_TIMEOUT = 600          # seconds for a process-group world to finish
 
 
 def recorded(module, fn):
@@ -1072,10 +1091,57 @@ def check_block_against_plain(torch, call, out, what):
     return err
 
 
-def phase_sharded_forward(torch, g, rng):
-    """10a: partitions at P = 2 and 4 on cuda:0 and one masked forward each,
-    every shard's K1 output held bitwise against the single-device K1's and
-    against the plain version on its own block."""
+def one_card(parts):
+    """Phase 10's layout: every shard on cuda:0."""
+    return ["cuda:0"] * parts
+
+
+def per_card(parts):
+    """Phase 14's layout: shard i on cuda:i."""
+    return [f"cuda:{i}" for i in range(parts)]
+
+
+def k1_by_card(fn):
+    """Run fn with every K1 launch (forward and backward) counted by the
+    card it ran on: returns fn's result and {"<counter>@cuda:i": n}.  The
+    wrappers' own counts (``_build.launches``) are by name alone."""
+    import collections
+    import threading
+
+    import gnn_mwvc_tpu_torch.ops.aggregate as agg
+
+    kernel, counts = agg._aggregate, collections.Counter()
+    lock = threading.Lock()   # autograd's per-card threads launch backwards
+
+    def record(x, indptr, indices, mask, counter):
+        out = kernel(x, indptr, indices, mask, counter)
+        if out.device.type == "cuda":
+            with lock:
+                counts[f"{counter}@{out.device}"] += 1
+        return out
+
+    agg._aggregate = record
+    try:
+        return fn(), dict(sorted(counts.items()))
+    finally:
+        agg._aggregate = kernel
+
+
+def check_every_card(by_card, counter, devices, least, what):
+    """Fail unless K1's ``counter`` ran at least ``least`` times on each
+    CUDA device of ``devices``."""
+    for d in dict.fromkeys(str(d) for d in devices):
+        if by_card.get(f"{counter}@{d}", 0) < least:
+            fail(f"{what}: {counter} ran {by_card.get(f'{counter}@{d}', 0)} "
+                 f"times on {d}, want {least} or more ({by_card})")
+
+
+def phase_sharded_forward(torch, g, rng, layouts, counts=SHARD_COUNTS):
+    """10a / 14a: partitions at each P of ``counts`` (``layouts``: name ->
+    the devices of P shards) and one masked forward each, every shard's K1
+    output on its shard's card and bitwise equal to its rows of the
+    single-device K1's and to the plain version on its own block; ms of
+    each with every card synchronised, beside the single device's."""
     import numpy as np
 
     import gnn_mwvc_tpu_torch.models.gnn as gnn_mod
@@ -1085,13 +1151,15 @@ def phase_sharded_forward(torch, g, rng):
     from gnn_mwvc_tpu_torch.ops import _build
     from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate
     from gnn_mwvc_tpu_torch.parallel import (ShardedGraph, gather_scores,
-                                             make_mesh,
+                                             make_mesh, make_sharded_forward,
                                              make_sticky_sharded_forward,
-                                             partition_device_graph)
+                                             mesh_seconds_per_call,
+                                             partition_device_graph,
+                                             synchronize)
     from gnn_mwvc_tpu_torch.tools._common import graph_ms, hbm_bound_ms
 
-    dg = DeviceGraph.from_graph(g, "cuda")
-    model = pretrained_model("cuda")
+    dg = DeviceGraph.from_graph(g, "cuda:0")
+    model = pretrained_model("cuda:0")
     ws = float(g.weights.max())
     alive = rng.random(g.n) < 0.7
     mask = torch.from_numpy(alive.astype(np.float32)).cuda()
@@ -1103,125 +1171,169 @@ def phase_sharded_forward(torch, g, rng):
                          source_mask=mask)[:, 0]
 
     want, want_aggs, _calls = recorded(gnn_mod, single)
-    single_ms = cuda_ms(single, 10)
+    single_ms = mesh_seconds_per_call(single, ["cuda:0"], 10) * 1e3
     rows = {}
-    for parts in SHARD_COUNTS:
-        mesh = make_mesh(parts, devices=["cuda:0"] * parts)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sg = partition_device_graph(dg, parts, devices=mesh)
-        torch.cuda.synchronize()
-        part_s = time.perf_counter() - t0
-        n_loc = sg.n_loc
-        live = torch.zeros(4, parts * n_loc, device="cuda")
-        live[:, :g.n] = torch.stack([dg.weights, dg.nw, dg.degrees, mask])
-        bufs = list(live.split(n_loc, dim=1))
-        bufs = [b.contiguous() for b in bufs]
-        fwd = make_sticky_sharded_forward(model, mesh)
-        _build.launches.clear()
-        got, aggs, calls = recorded(sharded_mod,
-                                    lambda: fwd(sg, bufs, None, ws))
-        torch.cuda.synchronize()
-        k1 = _build.launches["csr_aggregate"]
-        if k1 != 2 * parts or len(aggs) != 2 * parts:
-            fail(f"sharded forward P={parts}: {k1} K1 launches, want "
-                 f"{2 * parts}")
-        plain_err = 0.0
-        for layer in range(2):
-            for p in range(parts):
-                real = int(sg.shards[p].node_mask.sum())
-                lo = p * n_loc
-                a = aggs[layer * parts + p]
-                if not torch.equal(a[:real], want_aggs[layer][lo:lo + real]):
-                    diff = float((a[:real] - want_aggs[layer][lo:lo + real])
-                                 .abs().max())
-                    fail(f"sharded forward P={parts}: shard {p}'s K1 output "
-                         f"of graph layer {layer + 2} differs from the "
-                         f"single-device K1's rows (max |diff| {diff})")
-                plain_err = max(plain_err, check_block_against_plain(
-                    torch, calls[layer * parts + p][0], a,
-                    f"sharded forward P={parts}, shard {p}, graph layer "
-                    f"{layer + 2}"))
-        scores = torch.from_numpy(gather_scores(sg, got))
-        err = float((scores - want.cpu())[torch.from_numpy(alive)].abs().max())
-        if not bool(torch.isfinite(scores).all()) or err > 1e-5:
-            fail(f"sharded forward P={parts}: scores differ by {err}")
-        ms = cuda_ms(lambda: fwd(sg, bufs, None, ws), 10)
-        # K1 alone on one inner shard's block (graph layer 2's call)
-        x, indptr, indices, m = calls[min(1, parts - 1)][0][:4]
-        block_ms = cuda_ms(
-            lambda: csr_aggregate(x, indptr, indices, m, block=True), 20)
-        block_device_ms = graph_ms(
-            lambda: csr_aggregate(x, indptr, indices, m, block=True), 20)
-        block_bound = hbm_bound_ms(indptr, indices, x, m,
-                                   aggs[min(1, parts - 1)])
-        full = ShardedGraph(n=g.n, n_loc=n_loc, parts=parts, h_max=0,
-                            shards=[]).halo_bytes_per_chip(16)
-        rows[parts] = {"partition_s": part_s, "h_max": sg.h_max,
-                       "halo_bytes": sg.halo_bytes_per_chip(16),
-                       "full_gather_bytes": full, "max_abs_err": err,
-                       "k1_vs_plain_max_abs_err": plain_err,
-                       "ms": ms, "k1_launches": k1, "block_ms": block_ms,
-                       "block_device_ms": block_device_ms,
-                       "block_bound_ms": block_bound,
-                       "block": f"{indptr.numel() - 1} x {x.shape[0]} rows, "
-                                f"{indices.numel()} edges"}
-        print(f"sharded forward P={parts} on cuda:0, n={g.n}, n_loc={n_loc}: "
-              f"partition {part_s:.3f} s, h_max {sg.h_max}, halo "
-              f"{sg.halo_bytes_per_chip(16)} bytes per shard per layer (full "
-              f"gather {full}); every shard's K1 output bitwise equal to its "
-              f"rows of the single-device K1's (2 graph layers), to the CPU "
-              f"plain version on its block, and within {plain_err:.3g} of the "
-              f"plain version on the card (rtol 1e-5, atol 1e-5); scores within "
-              f"{err:.3g} of the single-device forward; {k1} K1 launches; "
-              f"{ms:.4f} ms per sharded forward vs {single_ms:.4f} ms on one "
-              f"device (CUDA events); K1 on shard {min(1, parts - 1)}'s block "
-              f"({rows[parts]['block']}, masked) {block_ms:.4f} ms eager, "
-              f"{block_device_ms:.4f} ms on the device, HBM bound "
-              f"{block_bound:.4f} ms")
-        del sg, bufs, live
+    for parts in counts:
+        rows[parts] = {}
+        for layout, place in layouts.items():
+            mesh = make_mesh(parts, devices=place(parts))
+            synchronize(mesh.devices)
+            t0 = time.perf_counter()
+            sg = partition_device_graph(dg, parts, devices=mesh)
+            synchronize(mesh.devices)
+            part_s = time.perf_counter() - t0
+            n_loc = sg.n_loc
+            live = torch.zeros(4, parts * n_loc, device="cuda:0")
+            live[:, :g.n] = torch.stack([dg.weights, dg.nw, dg.degrees, mask])
+            bufs = [b.to(d).contiguous()
+                    for b, d in zip(live.split(n_loc, dim=1), mesh.devices)]
+            del live
+            fwd = make_sticky_sharded_forward(model, mesh)
+            _build.launches.clear()
+            (got, aggs, calls), by_card = k1_by_card(
+                lambda: recorded(sharded_mod, lambda: fwd(sg, bufs, None, ws)))
+            synchronize(mesh.devices)
+            k1 = _build.launches["csr_aggregate"]
+            if k1 != 2 * parts or len(aggs) != 2 * parts:
+                fail(f"sharded forward P={parts} ({layout}): {k1} K1 "
+                     f"launches, want {2 * parts}")
+            check_every_card(by_card, "csr_aggregate", mesh.devices,
+                             2 * parts // len(set(mesh.devices)),
+                             f"sharded forward P={parts} ({layout})")
+            plain_err = 0.0
+            for layer in range(2):
+                for p in range(parts):
+                    real = int(sg.shards[p].node_mask.sum())
+                    lo = p * n_loc
+                    a = aggs[layer * parts + p]
+                    if a.device != mesh.devices[p]:
+                        fail(f"sharded forward P={parts} ({layout}): shard "
+                             f"{p}'s K1 ran on {a.device}, not "
+                             f"{mesh.devices[p]}")
+                    ref = want_aggs[layer][lo:lo + real]
+                    if not torch.equal(a[:real].to(ref.device), ref):
+                        diff = float((a[:real].to(ref.device) - ref)
+                                     .abs().max())
+                        fail(f"sharded forward P={parts} ({layout}): shard "
+                             f"{p}'s K1 output of graph layer {layer + 2} "
+                             f"differs from the single-device K1's rows "
+                             f"(max |diff| {diff})")
+                    plain_err = max(plain_err, check_block_against_plain(
+                        torch, calls[layer * parts + p][0], a,
+                        f"sharded forward P={parts} ({layout}), shard {p}, "
+                        f"graph layer {layer + 2}"))
+            scores = torch.from_numpy(gather_scores(sg, got))
+            err = float((scores - want.cpu())[torch.from_numpy(alive)]
+                        .abs().max())
+            if not bool(torch.isfinite(scores).all()) or err > 1e-5:
+                fail(f"sharded forward P={parts} ({layout}): scores differ "
+                     f"by {err}")
+            ms = mesh_seconds_per_call(lambda: fwd(sg, bufs, None, ws),
+                                       mesh.devices, 10) * 1e3
+            # the unmasked forward of parallel.dryrun dist, for its ranks
+            plain_fwd = make_sharded_forward(model, mesh,
+                                             x_is_node_weights=True)
+            unmasked_ms = mesh_seconds_per_call(lambda: plain_fwd(sg, ws),
+                                                mesh.devices, 10) * 1e3
+            # K1 alone on one inner shard's block (graph layer 2's call),
+            # on that shard's card
+            shard = min(1, parts - 1)
+            x, indptr, indices, m = calls[shard][0][:4]
+            with torch.cuda.device(x.device):
+                block_ms = cuda_ms(
+                    lambda: csr_aggregate(x, indptr, indices, m, block=True),
+                    20)
+                block_device_ms = graph_ms(
+                    lambda: csr_aggregate(x, indptr, indices, m, block=True),
+                    20)
+            block_bound = hbm_bound_ms(indptr, indices, x, m, aggs[shard])
+            full = ShardedGraph(n=g.n, n_loc=n_loc, parts=parts, h_max=0,
+                                shards=[]).halo_bytes_per_chip(16)
+            row = rows[parts][layout] = {
+                "devices": [str(d) for d in mesh.devices],
+                "partition_s": part_s, "h_max": sg.h_max,
+                "halo_bytes": sg.halo_bytes_per_chip(16),
+                "full_gather_bytes": full, "max_abs_err": err,
+                "k1_vs_plain_max_abs_err": plain_err, "ms": ms,
+                "unmasked_ms": unmasked_ms, "k1_launches": k1,
+                "k1_by_card": by_card, "block_ms": block_ms,
+                "block_device_ms": block_device_ms,
+                "block_bound_ms": block_bound,
+                "block": f"{indptr.numel() - 1} x {x.shape[0]} rows, "
+                         f"{indices.numel()} edges, on {x.device}"}
+            print(f"sharded forward P={parts} on {layout} "
+                  f"({', '.join(row['devices'])}), n={g.n}, n_loc={n_loc}: "
+                  f"partition {part_s:.3f} s, h_max {sg.h_max}, halo "
+                  f"{row['halo_bytes']} bytes per shard per layer (full "
+                  f"gather {full}); every shard's K1 output on its shard's "
+                  f"card, bitwise equal to its rows of the single-device K1's "
+                  f"(2 graph layers), to the CPU plain version on its block, "
+                  f"and within {plain_err:.3g} of the plain version on the "
+                  f"card (rtol 1e-5, atol 1e-5); scores within {err:.3g} of "
+                  f"the single-device forward; {k1} K1 launches {by_card}; "
+                  f"{ms:.4f} ms per sharded forward ({unmasked_ms:.4f} ms "
+                  f"unmasked) vs {single_ms:.4f} ms on one device (host "
+                  f"clock between synchronises of every card); K1 on shard "
+                  f"{shard}'s block ({row['block']}, masked) {block_ms:.4f} "
+                  f"ms eager, {block_device_ms:.4f} ms on the device, HBM "
+                  f"bound {block_bound:.4f} ms")
+            del sg, bufs
     return {"single_ms": single_ms, "by_parts": rows,
-            "k1_launches": rows[SHARD_COUNTS[-1]]["k1_launches"]}
+            "k1_launches": rows[counts[-1]][layout]["k1_launches"]}
 
 
-def phase_sharded_solve(torch, g):
-    """10b: solve() at time_limit=0 through ShardedGnnScorer over 4 shards
-    of cuda:0, beside the single-device phase-1 solve."""
+def phase_sharded_solve(torch, g, layouts, parts=SHARD_COUNTS[-1]):
+    """10b / 14b: solve() at time_limit=0 through ShardedGnnScorer over
+    ``parts`` shards of each layout, beside the single-device phase-1 solve; returns
+    the launch counts of the last layout's solve and its K1 launches by
+    card."""
     from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
     from gnn_mwvc_tpu_torch.ops import _build
     from gnn_mwvc_tpu_torch.parallel import make_mesh
     from gnn_mwvc_tpu_torch.solver import ShardedGnnScorer, solve
 
-    parts = SHARD_COUNTS[-1]
-    scorer = ShardedGnnScorer(mesh=make_mesh(parts, devices=["cuda:0"] * parts))
-    _build.launches.clear()
-    res = solve(g, time_limit=0, scorer=scorer, device="cuda",
-                device_assist=False)
-    launches = dict(_build.launches)
-    if not is_vertex_cover(g, res.solution) or \
-            cover_cost(g, res.solution) != res.cost:
-        fail("sharded solve: the cover is invalid")
-    mesh_rounds = scorer.stats["rounds"]
-    k1 = launches.get("csr_aggregate", 0)
-    if mesh_rounds < 1 or k1 < 2 * parts * mesh_rounds:
-        fail(f"sharded solve: K1 launched {k1} times over {mesh_rounds} mesh "
-             "rounds")
-    one = solve(g, time_limit=0, device="cuda", device_assist=False)
-    p1, q1 = res.phase1, one.phase1
-    print(f"sharded solve P={parts} on cuda:0, time_limit=0: valid cover of "
-          f"cost {res.cost} in {res.time_gnn:.3f} s (reduce "
-          f"{p1['t_reduce0_s']:.3f}, score {p1['t_score_s']:.3f}, peel "
-          f"{p1['t_peel_s']:.3f}), {p1['rounds']} rounds ({mesh_rounds} on the "
-          f"mesh); single-device phase 1: cost {one.cost} in "
-          f"{one.time_gnn:.3f} s (score {q1['t_score_s']:.3f}), {q1['rounds']} "
-          f"rounds; difference {res.cost - one.cost}; launches {launches}; "
-          f"scorer {json.dumps(scorer.stats)}")
-    return launches
+    runs = {}
+    for layout, place in layouts.items():
+        mesh = make_mesh(parts, devices=place(parts))
+        scorer = ShardedGnnScorer(mesh=mesh)
+        _build.launches.clear()
+        res, by_card = k1_by_card(lambda: solve(
+            g, time_limit=0, scorer=scorer, device="cuda:0",
+            device_assist=False))
+        launches = dict(_build.launches)
+        if not is_vertex_cover(g, res.solution) or \
+                cover_cost(g, res.solution) != res.cost:
+            fail(f"sharded solve ({layout}): the cover is invalid")
+        mesh_rounds = scorer.stats["rounds"]
+        k1 = launches.get("csr_aggregate", 0)
+        if mesh_rounds < 1 or k1 < 2 * parts * mesh_rounds:
+            fail(f"sharded solve ({layout}): K1 launched {k1} times over "
+                 f"{mesh_rounds} mesh rounds")
+        check_every_card(by_card, "csr_aggregate", mesh.devices,
+                         2 * mesh_rounds, f"sharded solve ({layout})")
+        runs[layout] = (res, mesh_rounds, launches, by_card, scorer.stats)
+    one = solve(g, time_limit=0, device="cuda:0", device_assist=False)
+    q1 = one.phase1
+    for layout, (res, mesh_rounds, launches, by_card, stats) in runs.items():
+        p1 = res.phase1
+        print(f"sharded solve P={parts} on {layout}, time_limit=0: valid "
+              f"cover of cost {res.cost} in {res.time_gnn:.3f} s (reduce "
+              f"{p1['t_reduce0_s']:.3f}, score {p1['t_score_s']:.3f}, peel "
+              f"{p1['t_peel_s']:.3f}), {p1['rounds']} rounds ({mesh_rounds} "
+              f"on the mesh); single-device phase 1: cost {one.cost} in "
+              f"{one.time_gnn:.3f} s (score {q1['t_score_s']:.3f}), "
+              f"{q1['rounds']} rounds; difference {res.cost - one.cost}; "
+              f"launches {launches}, K1 by card {by_card}; scorer "
+              f"{json.dumps(stats)}")
+    return launches, by_card
 
 
-def phase_sharded_train(torch, g, rng):
-    """10c: 2 sharded train steps at P = 4 on cuda:0; the first step's
-    gradients against the single-device full-batch MSE's."""
+def phase_sharded_train(torch, g, rng, place, parts=SHARD_COUNTS[-1]):
+    """10c / 14c: 2 sharded train steps of ``parts`` shards on
+    ``place(parts)`` with the labels of ``parallel.dryrun dist``
+    (``train_labels``); the first step's gradients against the
+    single-device full-batch MSE's.  Returns the launch counts of the first
+    step, its K1 launches by card and its loss."""
     import numpy as np
 
     import gnn_mwvc_tpu_torch.parallel.sharded as sharded_mod
@@ -1231,26 +1343,27 @@ def phase_sharded_train(torch, g, rng):
     from gnn_mwvc_tpu_torch.ops.aggregate import (csr_aggregate,
                                                   csr_aggregate_plain)
     from gnn_mwvc_tpu_torch.parallel import (make_mesh, make_sharded_train_step,
-                                             partition_device_graph)
+                                             mesh_seconds_per_call,
+                                             partition_device_graph,
+                                             synchronize)
+    from gnn_mwvc_tpu_torch.parallel.dryrun import train_labels
 
-    parts = SHARD_COUNTS[-1]
     ws = float(g.weights.max())
-    dg = DeviceGraph.from_graph(g, "cuda")
-    labels = (rng.random(g.n) < 0.5).astype(np.float32)
-    ref = pretrained_model("cuda")
-    out = ref((dg.weights / ws).reshape(-1, 1), dg, ws)[:, 0]
-    ((out - torch.from_numpy(labels).cuda()) ** 2).mean().backward()
-    del out
-    mesh = make_mesh(parts, devices=["cuda:0"] * parts)
+    dg = DeviceGraph.from_graph(g, "cuda:0")
+    mesh = make_mesh(parts, devices=place(parts))
     sg = partition_device_graph(dg, parts, devices=mesh)
-    y = np.zeros(parts * sg.n_loc, np.float32)
-    y[:g.n] = labels
-    y = torch.from_numpy(y.reshape(parts, sg.n_loc)).cuda()
-    model = pretrained_model("cuda")
+    y = train_labels(sg)
+    ref = pretrained_model("cuda:0")
+    out = ref((dg.weights / ws).reshape(-1, 1), dg, ws)[:, 0]
+    labels = torch.from_numpy(y.reshape(-1)[:g.n]).cuda()
+    ((out - labels) ** 2).mean().backward()
+    del out, labels
+    model = pretrained_model("cuda:0")
     step, _opt = make_sharded_train_step(model, mesh)
     _build.launches.clear()
-    loss1, _outs, calls = recorded(sharded_mod, lambda: step(sg, y, ws))
-    torch.cuda.synchronize()
+    (loss1, _outs, calls), by_card = k1_by_card(
+        lambda: recorded(sharded_mod, lambda: step(sg, y, ws)))
+    synchronize(mesh.devices)
     launches = dict(_build.launches)
     # K1's backward on one inner shard's transposed block (the first call
     # whose input needs a gradient: graph layer 2's), against the plain
@@ -1260,7 +1373,7 @@ def phase_sharded_train(torch, g, rng):
                     if i % parts == shard and c[1]["transposed"] is not None)
     x = args[0].detach()
     up = torch.from_numpy(rng.standard_normal(
-        (args[1].numel() - 1, x.shape[1])).astype(np.float32)).cuda()
+        (args[1].numel() - 1, x.shape[1])).astype(np.float32)).to(x.device)
     grads = []
     for fn in (lambda v: csr_aggregate(v, *args[1:4], **kw),
                lambda v: csr_aggregate_plain(v, *args[1:4])):
@@ -1280,7 +1393,7 @@ def phase_sharded_train(torch, g, rng):
              "bitwise equal to the CPU plain version (max |diff| "
              f"{float((grads[0].cpu() - want).abs().max())})")
     block = (f"{x.shape[0]} rows over {args[1].numel() - 1}, "
-             f"{args[2].numel()} edges, w={x.shape[1]}")
+             f"{args[2].numel()} edges, w={x.shape[1]}, on {x.device}")
     del x, up, grads, v, want, calls, _outs
     worst = 0.0
     for (name, p), q in zip(model.named_parameters(), ref.parameters()):
@@ -1294,48 +1407,58 @@ def phase_sharded_train(torch, g, rng):
     if back != 2 * parts:   # graph layers 2 and 3 on every shard
         fail(f"sharded train step: K1 backward launched {back} times, want "
              f"{2 * parts}")
+    check_every_card(by_card, "csr_aggregate_backward", mesh.devices,
+                     2 * parts // len(set(mesh.devices)),
+                     "sharded train step")
     loss2 = step(sg, y, ws)
     if not (np.isfinite(loss1) and np.isfinite(loss2) and loss2 < loss1):
         fail(f"sharded train step: losses {loss1}, {loss2}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        step(sg, y, ws)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 3
-    print(f"sharded train step P={parts} on cuda:0, n={g.n}: losses {loss1:.6f}, "
+    ms = mesh_seconds_per_call(lambda: step(sg, y, ws), mesh.devices, 3) * 1e3
+    print(f"sharded train step P={parts} on "
+          f"{', '.join(str(d) for d in mesh.devices)}, n={g.n}: losses "
+          f"{loss1:.6f}, "
           f"{loss2:.6f}; first-step gradients within {worst:.3g} of each "
           f"tensor's largest entry of the single-device MSE's (limit 1e-4); "
           f"K1 backward on shard {shard}'s transposed block "
           f"({block}) within {back_err:.3g} of the plain version's autograd "
           f"on the card (rtol 1e-5, atol 1e-5) and bitwise equal to the CPU "
-          f"plain version; launches per step {launches}; {ms:.4f} ms per step "
-          "(host clock after a synchronise)")
-    return launches
+          f"plain version; launches per step {launches}, K1 by card "
+          f"{by_card}; {ms:.4f} ms per step (host clock between "
+          "synchronises of every card)")
+    return launches, by_card, loss1
 
 
-def phase_sharded_dist(torch, k=1):
-    """10d (k = 1) and 10f (k = 2): two processes of k shards each in a gloo
-    world on cuda:0; for k > 1 the train step's loss is held against a
-    local mesh of 2k shards of cuda:0."""
+def phase_sharded_dist(torch, k=1, backend="gloo", world=2,
+                       rank_device=lambda rank: "cuda:0", side=None,
+                       want_loss=None):
+    """A process-group world of ``parallel.dryrun dist`` ranks of k shards
+    each on road``side`` (default ``DIST_SIDE``), rank r's shards on
+    ``rank_device(r)`` (one device or a comma list of k).  10d (k = 1) and
+    10f (k = 2): two gloo ranks on cuda:0, for k > 1 the train step's loss
+    held against a local mesh of 2k shards of cuda:0; 14d and 14e: NCCL
+    ranks on cards of their own, the loss held against ``want_loss`` (the
+    local mesh's of phase 14c)."""
     import socket
 
+    side = side or DIST_SIDE
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
     sock.close()
+    what = f"{backend} world of {world} ranks x {k} shards"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "gnn_mwvc_tpu_torch.parallel.dryrun", "dist",
-         str(rank), "2", init, "--backend", "gloo", "--device", "cuda:0",
-         "--road", str(DIST_SIDE), "--shards-per-rank", str(k)],
+         str(rank), str(world), init, "--backend", backend, "--device",
+         rank_device(rank), "--road", str(side), "--shards-per-rank", str(k)],
         cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for rank in range(2)]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for rank in range(world)]
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=DIST_TIMEOUT))
     except subprocess.TimeoutExpired:
-        fail(f"gloo world: a rank did not finish in {DIST_TIMEOUT} s")
+        fail(f"{what}: a rank did not finish in {DIST_TIMEOUT} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1344,19 +1467,22 @@ def phase_sharded_dist(torch, k=1):
     results = []
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            fail(f"gloo world: rank {rank} exit {p.returncode}\n{out[-2000:]}\n"
+            fail(f"{what}: rank {rank} exit {p.returncode}\n{out[-2000:]}\n"
                  f"{err[-3000:]}")
         r = json.loads(out.strip().splitlines()[-1])
+        cards = sorted(set(r["devices"]))
         if not r["ok"] or r["max_abs_err"] > 1e-5 or \
-                r["launches"].get("csr_aggregate", 0) < k or \
+                r["launches"].get("csr_aggregate", 0) < 2 * k or \
                 r["shard_ids"] != list(range(rank * k, rank * k + k)) or \
-                r["cuda_devices_used"] != ["cuda:0"]:
-            fail(f"gloo world, {k} shards per rank: rank {rank}: {r}")
+                r["devices"] != rank_device(rank).split(",") * (
+                    k // len(rank_device(rank).split(","))) or \
+                r["cuda_devices_used"] != cards:
+            fail(f"{what}: rank {rank}: {r}")
         results.append(r)
-    if results[0]["loss"] != results[1]["loss"]:
-        fail(f"gloo world: the ranks' losses differ: {results}")
-    local = None
-    if k > 1:
+    if any(r["loss"] != results[0]["loss"] for r in results):
+        fail(f"{what}: the ranks' losses differ: {results}")
+    local = want_loss
+    if local is None and k > 1:
         from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
         from gnn_mwvc_tpu_torch.models import pretrained_model
         from gnn_mwvc_tpu_torch.parallel import (make_mesh,
@@ -1364,28 +1490,30 @@ def phase_sharded_dist(torch, k=1):
                                                  partition_device_graph)
         from gnn_mwvc_tpu_torch.parallel.dryrun import train_labels
 
-        g = build_road_graph(DIST_SIDE)
-        mesh = make_mesh(2 * k, devices=["cuda:0"] * (2 * k))
+        g = build_road_graph(side)
+        mesh = make_mesh(world * k, devices=one_card(world * k))
         sg = partition_device_graph(DeviceGraph.from_graph(g, "cuda:0"),
-                                    2 * k, devices=mesh)
+                                    world * k, devices=mesh)
         step, _opt = make_sharded_train_step(pretrained_model("cuda:0"), mesh)
         local = step(sg, train_labels(sg), float(g.weights.max()))
-        if abs(local - results[0]["loss"]) > 1e-5 * abs(local):
-            fail(f"gloo world, {k} shards per rank: loss "
-                 f"{results[0]['loss']} against the local mesh's {local}")
+    if local is not None and \
+            abs(local - results[0]["loss"]) > 1e-5 * abs(local):
+        fail(f"{what}: loss {results[0]['loss']} against the local mesh's "
+             f"{local}")
     for r in results:
-        print(f"gloo rank {r['rank']} of 2, shards {r['shard_ids']} on "
-              f"{r['device']} ({r['transport']}), road{DIST_SIDE} n={r['n']}, "
-              f"n_loc {r['n_loc']}, h_max {r['h_max']}: exit 0, within "
-              f"{r['max_abs_err']:.3g} of the single-device forward; "
-              f"{r['forward_ms']:.4f} ms per forward (host clock); train step "
-              f"loss {r['loss']:.6f}" + ("" if local is None else
-                                         f" (local {2 * k}-shard mesh "
-                                         f"{local:.6f})")
+        print(f"{backend} rank {r['rank']} of {world}, shards "
+              f"{r['shard_ids']} on {', '.join(r['devices'])} "
+              f"({r['transport']}), road{side} n={r['n']}, n_loc "
+              f"{r['n_loc']}, h_max {r['h_max']}, halo "
+              f"{r['halo_bytes_per_shard']} B per shard per layer: exit 0, "
+              f"within {r['max_abs_err']:.3g} of the single-device forward; "
+              f"{r['forward_ms']:.4f} ms per forward (host clock "
+              f"between synchronises of the rank's cards); train step loss "
+              f"{r['loss']:.6f}" + ("" if local is None else
+                                    f" (local {world * k}-shard mesh "
+                                    f"{local:.6f})")
               + f"; launches {r['launches']}; CUDA devices allocated on "
               f"{r['cuda_devices_used']}")
-    print("not exercised: NCCL (it refuses two ranks on one GPU) and copies "
-          "between cards (the machine has one card)")
     return results
 
 
@@ -1418,15 +1546,17 @@ def phase_sharded(torch, g, seed):
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 10)
-    fwd = phase_sharded_forward(torch, g, rng)
+    fwd = phase_sharded_forward(torch, g, rng, {"cuda:0": one_card})
     torch.cuda.empty_cache()
-    solve_launches = phase_sharded_solve(torch, g)
+    solve_launches, _ = phase_sharded_solve(torch, g, {"cuda:0": one_card})
     torch.cuda.empty_cache()
-    train_launches = phase_sharded_train(torch, g, rng)
+    train_launches, _, _ = phase_sharded_train(torch, g, rng, one_card)
     torch.cuda.empty_cache()
     dist = phase_sharded_dist(torch)
     dist2 = phase_sharded_dist(torch, k=2)
     cli = phase_shards_cli(seed)
+    print("phase 10 keeps every shard on cuda:0 and its ranks on gloo; NCCL "
+          "and copies between cards are phase 14's")
     print(f"phase 10: {time.perf_counter() - t0:.3f} s")
     return {"sharded_forward": {"csr_aggregate": fwd["k1_launches"]},
             "sharded_solve": solve_launches,
@@ -1501,16 +1631,21 @@ def phase_tools(side):
             ("canonical", mod + "canonical",
              [TOOLS_CANONICAL, "--time", TOOLS_CANONICAL_TIME,
               *out("canonical.json")], (k1, k4)),
+            # --device cuda:0: all P shards on the one card, which the tools'
+            # default (one shard per card) would refuse or skip there
             ("sharded_solve", mod + "sharded_solve",
-             [TOOLS_CANONICAL, "--parts", 4, *out("sharded.json")], (k1,)),
+             [TOOLS_CANONICAL, "--parts", 4, "--device", "cuda:0",
+              *out("sharded.json")], (k1,)),
             ("er_slice_bench", mod + "er_slice_bench",
              ["--n", TOOLS_ER_N, "--deg", 16, "--parts", "1,4",
               *out("er.json")], (k1,)),
             ("scale_bench", mod + "scale_bench",
-             ["--n", TOOLS_SCALE_N, "--deg", 12, "--parts", "1,2,4"], (k1,)),
+             ["--n", TOOLS_SCALE_N, "--deg", 12, "--parts", "1,2,4",
+              "--device", "cuda:0"], (k1,)),
             ("scaling_weak", mod + "scaling_weak",
              ["--side", TOOLS_SCALE_SIDE, "--er-n", TOOLS_SCALE_N,
-              "--parts", "1,2,4", *out("weak.json")], (k1,)),
+              "--parts", "1,2,4", "--device", "cuda:0", *out("weak.json")],
+             (k1,)),
             ("reduce_scale", mod + "reduce_scale",
              ["--side", TOOLS_REDUCE_SIDE, *out("reduce.json")], ()),
         ])
@@ -1820,6 +1955,148 @@ def phase_last_surfaces(torch, g):
             "ls_run": SURFACE_LAUNCHES["ls_run"], **counts}
 
 
+def phase_multi_card_tools(seed, parts):
+    """14f: as subprocesses, each on cards of their own, launches counted
+    from 0: gnn-vc-torch --shards P on road300 (K1 and K4), sharded_solve,
+    scale_bench, scaling_weak with --device cuda (one shard per card) and
+    entry multichip P.  Returns the launch counts of each run."""
+    import tempfile
+
+    from gnn_mwvc_tpu_torch.graph import build_road_graph
+    from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
+                                            read_solution, write_metis)
+
+    k1, k4 = "csr_aggregate", "small_mwvc_mitm"
+    mod = "gnn_mwvc_tpu_torch.tools."
+    scale_parts = [1] + [p for p in SHARD_COUNTS if p <= parts]
+    plist = ",".join(map(str, scale_parts))
+    cli = f"gnn-vc-torch --shards {parts}"
+    names = {cli: cli, "sharded_solve": f"sharded_solve --parts {parts} "
+             "--device cuda", "scale_bench": "scale_bench --device cuda",
+             "scaling_weak": "scaling_weak --device cuda",
+             "entry": f"entry multichip {parts}"}
+    g = build_road_graph(SURFACE_SIDE, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="mwvc_multicard_") as tmp:
+        path = os.path.join(tmp, f"road{SURFACE_SIDE}.metis")
+        sol = os.path.join(tmp, f"road{SURFACE_SIDE}.sol")
+        write_metis(path, g)
+        texts = run_surfaces([
+            (names[cli], "gnn_mwvc_tpu_torch.solver.cli",
+             [path, sol, SURFACE_TIME, "-1", "0", "--shards", parts],
+             (k1, k4)),
+            (names["sharded_solve"], mod + "sharded_solve",
+             [TOOLS_CANONICAL, "--parts", parts, "--device", "cuda", "--out",
+              os.path.join(tmp, "sharded.json")], (k1,)),
+            (names["scale_bench"], mod + "scale_bench",
+             ["--n", TOOLS_SCALE_N, "--deg", 12, "--parts", plist,
+              "--device", "cuda"], (k1,)),
+            (names["scaling_weak"], mod + "scaling_weak",
+             ["--side", TOOLS_SCALE_SIDE, "--er-n", TOOLS_SCALE_N, "--parts",
+              plist, "--device", "cuda", "--out",
+              os.path.join(tmp, "weak.json")], (k1,)),
+            (names["entry"], "gnn_mwvc_tpu_torch.entry",
+             ["multichip", parts], (k1,)),
+        ])
+        cover = read_solution(sol)
+    if not is_vertex_cover(g, cover):
+        fail(f"{cli}: the written cover is invalid")
+    print(f"{cli} road{SURFACE_SIDE}: valid cover of cost "
+          f"{cover_cost(g, cover)}")
+
+    (rec,) = json_lines(texts[names["sharded_solve"]])
+    if not rec["identical_covers"] or rec["cost_mesh"] != rec["cost_single"] \
+            or rec["devices"] != per_card(parts):
+        fail(f"{names['sharded_solve']}: {rec}")
+    print(f"sharded_solve {TOOLS_CANONICAL} P={parts} on {rec['devices']}: "
+          f"identical covers, cost {rec['cost_mesh']}; phase 1 "
+          f"{rec['t_phase1_mesh_s']} s sharded vs {rec['t_phase1_single_s']} "
+          f"s single; h_max {rec['h_max']}")
+
+    scale = json.loads(texts[names["scale_bench"]].strip().splitlines()[-1])
+    weak = json_lines(texts[names["scaling_weak"]])[-1]
+    rows = [(f"scale_bench n={TOOLS_SCALE_N}", r["parts"], r["devices"],
+             r["ms"], r["max_abs_err_vs_single"]) for r in scale]
+    for name, v in weak.items():
+        rows += [(f"scaling_weak {name}", c["parts"], c["devices"],
+                  c["t_forward_s"] * 1e3, c["max_err_vs_single"])
+                 for c in v["configs"]]
+    for what, p, devices, _ms, err in rows:
+        if devices != per_card(p) or err > 1e-5:
+            fail(f"{what} P={p}: on {devices}, error {err} vs one device")
+    if [r["parts"] for r in scale] != scale_parts or any(
+            [c["parts"] for c in v["configs"]] != scale_parts
+            for v in weak.values()):
+        fail(f"scale_bench / scaling_weak: parts {scale}, {weak}")
+    print("one shard per card: " + "; ".join(
+        f"{what} P={p} {ms:.4f} ms (error {err:.3g})"
+        for what, p, _d, ms, err in rows) + "; single-device forward: "
+        + "; ".join(f"scaling_weak {name} {v['t_single_forward_s'] * 1e3:.4f}"
+                    f" ms" for name, v in weak.items()))
+    if f"dryrun_multichip({parts})" not in texts[names["entry"]]:
+        fail(f"{names['entry']}: {texts[names['entry']][-500:]}")
+    return {name: SURFACE_LAUNCHES[name] for name in names.values()}
+
+
+def phase_multi_card(torch, g, side, seed):
+    """Phase 14: the multi-device path with a card for each shard (P = 2
+    and 4, up to the card count); returns the launch counts of its paths."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    counts = [p for p in SHARD_COUNTS if p <= cards]
+    parts = counts[-1]
+    both = {"cuda:0": one_card, "a card per shard": per_card}
+    rng = np.random.default_rng(seed + 14)
+    # (a) the sharded forward, one card and a card per shard
+    fwd = phase_sharded_forward(torch, g, rng, both, counts)
+    torch.cuda.empty_cache()
+    for p in counts:
+        one, own = (fwd["by_parts"][p][k]["ms"] for k in both)
+        print(f"sharded forward P={p}: {own:.4f} ms on {p} cards, {one:.4f} "
+              f"ms on cuda:0, {fwd['single_ms']:.4f} ms single: speed-up "
+              f"{fwd['single_ms'] / own:.3f} over one device, "
+              f"{one / own:.3f} over {p} shards of one card")
+    # (b) a sharded phase 1
+    solve_launches, solve_by_card = phase_sharded_solve(torch, g, both, parts)
+    torch.cuda.empty_cache()
+    # (c) the train step
+    train_launches, train_by_card, loss1 = phase_sharded_train(
+        torch, g, rng, per_card, parts)
+    torch.cuda.empty_cache()
+    # (d) NCCL, a rank per card; (e) 2 ranks of 2 cards each
+    nccl = phase_sharded_dist(torch, backend="nccl", world=parts,
+                              rank_device=lambda r: f"cuda:{r}", side=side,
+                              want_loss=loss1)
+    by_path = {
+        "sharded_forward": {"csr_aggregate": fwd["k1_launches"]},
+        "sharded_forward_k1_by_card": fwd["by_parts"][parts][
+            "a card per shard"]["k1_by_card"],
+        "sharded_solve": solve_launches,
+        "sharded_solve_k1_by_card": solve_by_card,
+        "sharded_train_step": train_launches,
+        "sharded_train_step_k1_by_card": train_by_card,
+        f"nccl_{parts}x1_forward": {"csr_aggregate": sum(
+            r["launches"].get("csr_aggregate", 0) for r in nccl)}}
+    if parts == 4:
+        nccl2 = phase_sharded_dist(
+            torch, k=2, backend="nccl", world=2,
+            rank_device=lambda r: f"cuda:{2 * r},cuda:{2 * r + 1}",
+            side=side, want_loss=loss1)
+        by_path["nccl_2x2_forward"] = {"csr_aggregate": sum(
+            r["launches"].get("csr_aggregate", 0) for r in nccl2)}
+    else:
+        print(f"NCCL 2 ranks x 2 cards: not run: {cards} cards")
+    own = fwd["by_parts"][parts]["a card per shard"]["unmasked_ms"]
+    print(f"peer copies vs NCCL, P={parts}, the unmasked forward: "
+          f"{own:.4f} ms in one process; NCCL ranks "
+          + ", ".join(f"{r['forward_ms']:.4f}" for r in nccl) + " ms")
+    # (f) the entry points and tools, one shard per card
+    by_path.update(phase_multi_card_tools(seed, parts))
+    print(f"phase 14: {time.perf_counter() - t0:.3f} s")
+    return by_path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", type=float, default=150.0,
@@ -1827,6 +2104,8 @@ def main():
     ap.add_argument("--side", type=int, default=ROAD_SIDE,
                     help="road-like graph side (side^2 nodes)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multi-card", action="store_true",
+                    help="phases 1, 2 and 14 alone (needs 2 or more cards)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1871,14 +2150,28 @@ def main():
              if "registers" in ln or "Compiling entry" in ln]
     print(f"build: {time.perf_counter() - t0:.3f} s; " + " | ".join(ptxas))
 
+    from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
+                                          neighbour_weight_sum)
+
+    cards = torch.cuda.device_count()
+    if args.multi_card:
+        if cards < 2:
+            fail(f"--multi-card needs 2 or more CUDA cards, found {cards}")
+        by_path = {"multi_card": phase_multi_card(
+            torch, build_road_graph(args.side), args.side, args.seed)}
+        print(f"smoke: phases 1, 2 and 14 in "
+              f"{time.perf_counter() - t_start:.3f} s")
+        print(json.dumps({"launches_by_path": by_path}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}))
+        return 0
+
     rng = np.random.default_rng(args.seed)
     # 3. K4
     k4_err, enum_op = phase_k4(torch, rng, int_ops_per_s)
 
     # 4. K1 and 5. forward on the road-like graph
-    from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
-                                          neighbour_weight_sum)
-
     t0 = time.perf_counter()
     g = build_road_graph(args.side)
     t1 = time.perf_counter()
@@ -1924,12 +2217,23 @@ def main():
     # 13. the bench line, entry(), the native relabel and forward, and the
     # kernel-dump / local-search tools
     by_path["last_surfaces"] = phase_last_surfaces(torch, g)
+
+    # 14. the multi-device path with a card for each shard
+    if cards >= 2:
+        if args.side != ROAD_SIDE:
+            g = build_road_graph(args.side)
+        by_path["multi_card"] = phase_multi_card(torch, g, args.side,
+                                                 args.seed)
+    else:
+        print(f"phase 14 (multi-card): not run: {cards} CUDA card, it needs "
+              "2 or more")
     del g
 
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
     by_path = {"solve": launches, "train": train_launches, **by_path}
-    print(f"smoke: phases 1-13 in {time.perf_counter() - t_start:.3f} s")
+    print(f"smoke: phases 1-{14 if cards >= 2 else 13} in "
+          f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [
         {"name": "csr_aggregate", "route": "cuda",

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _lib = None
 build_log = ""  # nvcc's output of the last build (register / smem report)
 
@@ -89,6 +90,13 @@ def lib() -> ct.CDLL:
             handle.gnn_mwvc_cuda_error_string.restype = ct.c_char_p
             _lib = handle
     return _lib
+
+
+def count(name: str) -> None:
+    """One launch of ``name``.  Autograd runs each card's backward on a
+    thread of its own, so the count takes a lock."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -134,7 +134,7 @@ def _aggregate(x, indptr, indices, mask, counter):
             _MASK_KINDS[mask.dtype] if mask is not None else 0,
             out.data_ptr(), n, x.shape[1], stream)
     _build.check(err, counter)
-    _build.launches[counter] += 1
+    _build.count(counter)
     return out
 
 

@@ -124,5 +124,5 @@ def small_mwvc_mitm(adj: torch.Tensor, w: torch.Tensor):
             adj.data_ptr(), w.data_ptr(), best_cost.data_ptr(),
             best_set.data_ptr(), b, n, stream)
     _build.check(err, "small_mwvc_mitm")
-    _build.launches["small_mwvc_mitm"] += 1
+    _build.count("small_mwvc_mitm")
     return best_cost, best_set

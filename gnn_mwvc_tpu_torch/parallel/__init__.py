@@ -5,6 +5,9 @@ from gnn_mwvc_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     init_distributed,
     make_mesh,
+    mesh_seconds_per_call,
+    place_mesh,
+    synchronize,
 )
 from gnn_mwvc_tpu_torch.parallel.sharded import (  # noqa: F401
     ShardedGraph,

@@ -2,7 +2,7 @@
 
     python -m gnn_mwvc_tpu_torch.parallel.dryrun local N [--device cpu|cuda:0]
     python -m gnn_mwvc_tpu_torch.parallel.dryrun dist RANK WORLD INIT_METHOD \\
-        [--backend gloo] [--device cpu|cuda:K] [--road SIDE]
+        [--backend gloo|nccl] [--device DEV[,DEV...]] [--road SIDE]
         [--shards-per-rank K] [--out ROWS.npy]
 
 ``local``: over a mesh of N shards in this process (one per CUDA card with
@@ -17,12 +17,17 @@ one process per rank with the same INIT_METHOD, e.g.
 1; the JAX package's ``tests/dist_worker.py`` runs 2 ranks of 2), on a
 road-like graph: the sharded forward, its rows held within 1e-5 of this
 rank's rows of the single-device forward (``--out`` saves them, real nodes
-only, in node order), then one train step; every shard on
-``cuda:<rank % cards>`` unless ``--device`` names another device (no card
-raises).  The last line is JSON with the rank's error, loss, milliseconds
-per forward, kernel launches and the CUDA devices it allocated on.  NCCL
-needs one card per rank; gloo takes CPU or CUDA tensors (CUDA ones cross
-through the host).
+only, in node order), then one train step.  ``--device`` names one device
+for all K shards of the rank or a comma list of K, one per shard (rank r of
+2 x 2 cards: ``cuda:2r,cuda:2r+1``; ``mesh.place_mesh``); without it
+every shard is on ``cuda:<rank % cards>`` (no card raises).  The rank's
+first device holds the single-device reference, the staging of the
+exchange and NCCL's communicator (bound with ``torch.cuda.set_device``
+before the first collective).  The last line is JSON with the rank's
+error, loss, milliseconds per forward (host clock around a synchronise of
+every card of the rank), kernel launches and the CUDA devices it allocated
+on.  NCCL needs a card of its own per rank; gloo takes CPU or CUDA tensors
+(CUDA ones cross through the host).
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import numpy as np
 import torch
@@ -40,7 +44,9 @@ from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph, build_road_graph
 from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
 from gnn_mwvc_tpu_torch.models import pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.ops import _build
-from gnn_mwvc_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from gnn_mwvc_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                              mesh_seconds_per_call,
+                                              place_mesh, synchronize)
 from gnn_mwvc_tpu_torch.parallel.sharded import (make_sharded_forward,
                                                  make_sharded_train_step,
                                                  partition_device_graph)
@@ -104,11 +110,6 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     return {"loss": loss, "solve_cost": res.cost}
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def dist_worker(rank: int, world: int, init_method: str,
                 backend: str = "gloo", device: str | None = None,
                 road: int = 40, shards_per_rank: int = 1,
@@ -116,16 +117,17 @@ def dist_worker(rank: int, world: int, init_method: str,
     """One rank of a process-group world of ``shards_per_rank`` shards per
     rank: the sharded forward against this rank's rows of the
     single-device forward, its time, and one train step.  ``device``: this
-    rank's, default ``cuda:<rank % cards>`` (no card raises).  Raises if the
-    forward differs by more than ``DIST_TOL``."""
+    rank's, one for every shard or a comma list (``place_mesh``), default
+    ``cuda:<rank % cards>`` (no card raises).  Raises if the forward
+    differs by more than ``DIST_TOL``."""
     k = shards_per_rank
     init_distributed(backend, init_method, world, rank)
     try:
-        mesh = make_mesh(world * k, devices=None if device is None
-                         else [device] * k, group=dist.group.WORLD)
+        mesh = place_mesh(world * k, device, group=dist.group.WORLD)
         device = mesh.devices[0]
         if device.type == "cuda":
-            torch.cuda.set_device(device)   # gloo's CUDA work uses this card
+            # NCCL's communicator and gloo's CUDA work use this card
+            torch.cuda.set_device(device)
         g = build_road_graph(road)
         ws = float(g.weights.max())
         dg = DeviceGraph.from_graph(g, device)
@@ -135,35 +137,37 @@ def dist_worker(rank: int, world: int, init_method: str,
         fwd = make_sharded_forward(model, mesh, x_is_node_weights=True)
         _build.launches.clear()
         outs = fwd(sg, ws)
-        _sync(device)
+        synchronize(mesh.devices)
         launches = dict(_build.launches)
         shard_ids = list(mesh.shard_ids)
         lo = shard_ids[0] * sg.n_loc
-        rows = torch.cat(outs)[:max(min(g.n - lo, k * sg.n_loc), 0)]
-        err = float((rows - single[lo:lo + len(rows)]).abs().max()) \
-            if len(rows) else 0.0
+        n_rows = max(min(g.n - lo, k * sg.n_loc), 0)
+
+        rows = torch.cat([o.to(device) for o in outs])[:n_rows]
+        err = float((rows - single[lo:lo + n_rows]).abs().max()) \
+            if n_rows else 0.0
         if out is not None:
             np.save(out, rows.cpu().numpy())
-        t0 = time.perf_counter()
-        for _ in range(DIST_ITERS):
-            fwd(sg, ws)
-        _sync(device)
-        ms = (time.perf_counter() - t0) * 1e3 / DIST_ITERS
+        ms = mesh_seconds_per_call(lambda: fwd(sg, ws), mesh.devices,
+                                   DIST_ITERS) * 1e3
         step, _opt = make_sharded_train_step(pretrained_model(device), mesh)
         loss = step(sg, train_labels(sg), ws)
-        _sync(device)
+        synchronize(mesh.devices)
         cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())
                  if torch.cuda.memory_allocated(i) > 0]
     finally:
         dist.destroy_process_group()
     result = {"rank": rank, "world": world, "backend": backend,
-              "device": str(device), "shards_per_rank": k,
-              "shard_ids": shard_ids, "n": g.n, "n_loc": sg.n_loc,
-              "h_max": sg.h_max, "transport": f"all_to_all_single over "
-              f"{backend} on {device.type} tensors, copies within the rank",
-              "max_abs_err": err, "loss": loss, "forward_ms": ms,
-              "launches": launches, "cuda_devices_used": cards,
-              "ok": err <= DIST_TOL}
+              "device": str(device),
+              "devices": [str(d) for d in mesh.devices],
+              "shards_per_rank": k, "shard_ids": shard_ids, "n": g.n,
+              "n_loc": sg.n_loc, "h_max": sg.h_max,
+              "halo_bytes_per_shard": sg.halo_bytes_per_chip(),
+              "transport": f"all_to_all_single over {backend} on "
+              f"{device.type} tensors staged on {device}, copies within "
+              "the rank", "max_abs_err": err, "loss": loss,
+              "forward_ms": ms, "launches": launches,
+              "cuda_devices_used": cards, "ok": err <= DIST_TOL}
     if err > DIST_TOL:
         raise RuntimeError(f"rank {rank}: the sharded forward differs from "
                            f"the single-device one by {err}: {result}")
@@ -184,7 +188,9 @@ def main(argv=None):
     dst.add_argument("init_method")
     dst.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     dst.add_argument("--device", default=None,
-                     help="this rank's device (default cuda:<rank %% cards>)")
+                     help="this rank's device for all its shards, or a comma "
+                          "list of one per shard (default cuda:<rank %% "
+                          "cards>)")
     dst.add_argument("--road", type=int, default=40,
                      help="side of the road-like graph (side^2 nodes)")
     dst.add_argument("--shards-per-rank", type=int, default=1)
@@ -192,10 +198,8 @@ def main(argv=None):
                      help="save this rank's forward rows (.npy)")
     args = ap.parse_args(argv)
     if args.mode == "local":
-        dev = torch.device(args.device)
-        on_cards = dev.type == "cuda" and dev.index is None
-        dryrun_multichip(args.shards, None if on_cards
-                         else [args.device] * args.shards)
+        dryrun_multichip(args.shards,
+                         place_mesh(args.shards, args.device).devices)
     else:
         print(json.dumps(dist_worker(args.rank, args.world, args.init_method,
                                      args.backend, args.device, args.road,

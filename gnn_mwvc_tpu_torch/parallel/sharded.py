@@ -42,7 +42,7 @@ from gnn_mwvc_tpu_torch.graph import DeviceGraph
 from gnn_mwvc_tpu_torch.models.gnn import (MWVCModel, graph_layer,
                                            matmul_precision)
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_transpose
-from gnn_mwvc_tpu_torch.parallel.mesh import Mesh
+from gnn_mwvc_tpu_torch.parallel.mesh import Mesh, synchronize
 
 __all__ = [
     "Shard",
@@ -215,13 +215,12 @@ def partition_device_graph(dg: DeviceGraph, parts: int, halo: bool = True,
                         shards=shards)
 
 
-def _sync_devices(devices) -> None:
-    """Wait for every queued kernel of these CUDA devices, before a
-    collective reads their tensors (gloo stages CUDA tensors through the
-    host)."""
-    for d in set(devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
+def _sync_for_collective(mesh: Mesh, devices) -> None:
+    """Before a collective reads tensors of ``devices``: gloo stages CUDA
+    tensors through the host, so wait for their queued kernels; NCCL runs
+    after the devices' current streams and needs no wait."""
+    if dist.get_backend(mesh.group) != "nccl":
+        synchronize(devices)
 
 
 def _swap(blocks: list, mesh: Mesh) -> list:
@@ -236,7 +235,9 @@ def _swap(blocks: list, mesh: Mesh) -> list:
     order before the next kernel on either card.  Between ranks of a process
     group: one ``all_to_all_single`` with per-rank split sizes, rank r's
     part holding, for each local shard i and each of r's shards j, the
-    block from i to j (gloo stages CUDA tensors through the host).
+    block from i to j.  The send buffer is staged on the rank's first
+    device (where NCCL's communicator lives) and what arrives is copied to
+    each shard's device (gloo stages CUDA tensors through the host).
     """
     parts, devs = mesh.parts, mesh.devices
     b = blocks[0].shape[0] // parts
@@ -255,7 +256,7 @@ def _swap(blocks: list, mesh: Mesh) -> list:
                       for i in range(k) for j in range(k)])
     recv = torch.empty_like(send)
     splits = [0 if r == rank else k * k * b for r in range(world)]
-    _sync_devices(devs)
+    _sync_for_collective(mesh, devs)
     dist.all_to_all_single(recv, send, splits, splits, group=mesh.group)
     got = recv.view(len(peers), k, k, b, -1)   # (peer, its shard, ours)
 
@@ -312,6 +313,24 @@ def _aggregate(hs: list, sg: ShardedGraph, mesh: Mesh,
     return aggs
 
 
+def _weights_on(model: MWVCModel, devices) -> dict:
+    """Every linear's weight and bias, in order, on each of ``devices``:
+    the parameters themselves on their own device, and on each other card
+    one copy per forward of all of them packed into one buffer, whose
+    backward carries the gradients home (a copy per layer and shard costs
+    the host 18 peer copies per card and forward)."""
+    params = [t for lin in model.linears for t in (lin.weight, lin.bias)]
+    home = params[0].device
+    out = {home: params}
+    others = [d for d in dict.fromkeys(devices) if d != home]
+    if others:
+        flat = torch.cat([p.reshape(-1) for p in params])
+        for d in others:
+            parts = flat.to(d).split([p.numel() for p in params])
+            out[d] = [q.view_as(p) for q, p in zip(parts, params)]
+    return out
+
+
 def _layer_stack(model: MWVCModel, xs: list, sg: ShardedGraph, mesh: Mesh,
                  ws: float, compat: bool = True, masks: list | None = None,
                  x_is_node_weights: bool = False,
@@ -328,12 +347,13 @@ def _layer_stack(model: MWVCModel, xs: list, sg: ShardedGraph, mesh: Mesh,
     stats = stats if stats is not None else sg.shards
     hs = list(xs)
     first_graph = True
-    linears = iter(model.linears)
+    weights = _weights_on(model, [h.device for h in hs])
+    linear = 0
     for kind in model.kinds:
         if kind == "linear":
-            lin = next(linears)
-            hs = [F.linear(h, lin.weight.to(h.device), lin.bias.to(h.device))
+            hs = [F.linear(h, *weights[h.device][2 * linear:2 * linear + 2])
                   for h in hs]
+            linear += 1
         elif kind == "relu":
             hs = [torch.relu(h) for h in hs]
         elif kind == "sigmoid":
@@ -452,11 +472,11 @@ def make_sharded_train_step(model: MWVCModel, mesh: Mesh, lr: float = 0.01,
             loss.backward()
             return loss
         total = sum(cnt).detach()
-        _sync_devices([home])
+        _sync_for_collective(mesh, [home])
         dist.all_reduce(total, group=mesh.group)
         local = sum(sse)
         (local / total.clamp(min=1.0)).backward()
-        _sync_devices(mesh.devices)
+        _sync_for_collective(mesh, mesh.devices)
         for p in params:
             dist.all_reduce(p.grad, group=mesh.group)
         loss = local.detach().clone()

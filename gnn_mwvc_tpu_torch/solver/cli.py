@@ -13,8 +13,12 @@ Options: ``--device`` (default cuda; cuda without a GPU is an error),
 (a model file in the reference text format), ``--json``, ``--shards N``
 (phase 1 scored over N shards, ``ShardedGnnScorer``: one per CUDA card from
 ``cuda:0``, or N on the host with ``--device cpu``; the phase-2 assist stays
-on ``--device``; not with ``--quick``).  Without either, phase 1 scores each
-round's snapshot with ``GnnScorer`` on ``--device``, as ``gnn-vc`` does.
+on ``--device``; not with ``--quick``).  ``--device`` names the solve's
+device, where the mesh starts: ``cuda`` and ``cuda:0`` both give a shard per
+card, unlike a tool's ``--device cuda:0``, which puts every shard there
+(``parallel.place_mesh``), and another card is refused.  Without either,
+phase 1 scores each round's snapshot with ``GnnScorer`` on ``--device``, as
+``gnn-vc`` does.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def main(argv=None):
     if args.shards:
         import torch
 
-        from gnn_mwvc_tpu_torch.parallel import make_mesh
+        from gnn_mwvc_tpu_torch.parallel import place_mesh
 
         if args.quick:
             ap.error("--shards scores phase 1 with the GNN; --quick has none")
@@ -64,8 +68,7 @@ def main(argv=None):
                      f"; --device {args.device} would put the phase-2 assist "
                      "elsewhere")
         try:
-            mesh = make_mesh(args.shards, devices=[args.device] * args.shards
-                             if host else None)
+            mesh = place_mesh(args.shards, "cpu" if host else "cuda")
         except RuntimeError as e:
             ap.error(f"--shards {args.shards}: {e}")
 

@@ -11,6 +11,7 @@ import time
 import torch
 
 from gnn_mwvc_tpu_torch.graph import Graph, build_road_graph
+from gnn_mwvc_tpu_torch.parallel.mesh import synchronize
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 GRAPH_ITERS = 20            # calls per CUDA graph in ``graph_ms``
@@ -29,17 +30,12 @@ def default_out(filename: str) -> str:
     return os.path.join(tempfile.gettempdir(), filename)
 
 
-def sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def seconds_per_call(fn, device: torch.device, iters: int) -> float:
     """Mean seconds per call of ``iters`` back-to-back calls after one
     warm-up: CUDA events around them on a card, the host clock on the
     CPU."""
     fn()
-    sync(device)
+    synchronize(device)
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -64,7 +60,9 @@ def graph_ms(fn, iters: int = GRAPH_ITERS) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the current card's side stream: torch.cuda.graph's own
+    # default stream belongs to the card that was current at its first use
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()

@@ -31,10 +31,10 @@ import torch
 from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
 from gnn_mwvc_tpu_torch.models import pretrained_model
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_aggregate_plain
+from gnn_mwvc_tpu_torch.parallel import synchronize
 from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import (default_out, graph_ms,
-                                              hbm_bound_ms, seconds_per_call,
-                                              sync)
+                                              hbm_bound_ms, seconds_per_call)
 
 
 def build_er(n, deg, seed=3) -> Graph:
@@ -113,7 +113,7 @@ def main(argv=None):
         ws = float(g.weights.max())
         state = {"x": torch.zeros(dg.n, 1, device=device)}
         state["x"] = forward_scores(model, dg, ws, state["x"])
-        sync(device)
+        synchronize(device)
         t_load = time.perf_counter() - t0
 
         def step():

@@ -34,9 +34,9 @@ import torch
 from gnn_mwvc_tpu_torch.core import cluster_order
 from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
 from gnn_mwvc_tpu_torch.models import pretrained_model
+from gnn_mwvc_tpu_torch.parallel import synchronize
 from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
-from gnn_mwvc_tpu_torch.tools._common import (default_out, seconds_per_call,
-                                              sync)
+from gnn_mwvc_tpu_torch.tools._common import default_out, seconds_per_call
 
 # (setting, MWVCModel.forward's precision, what the row computes)
 SETTINGS = (
@@ -85,7 +85,7 @@ def main(argv=None):
         fn = forward_fn(model, dg, ws, precision)
         t0 = time.perf_counter()
         scores = fn().cpu().numpy()
-        sync(device)
+        synchronize(device)
         first = time.perf_counter() - t0
         err = np.abs(scores - ref)
         dt = min(seconds_per_call(fn, device, args.iters)

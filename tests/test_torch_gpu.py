@@ -356,6 +356,56 @@ def test_sharded_forward_on_four_shards_of_one_card(cuda):
     np.testing.assert_allclose(outs["cuda:0"], outs["cpu"], atol=1e-6, rtol=0)
 
 
+def test_sharded_forward_one_shard_per_card_k1_bitwise(cuda):
+    """Two shards, one on each of cuda:0 and cuda:1: each shard's K1 output
+    lies on its own card and is bitwise equal to its rows of the
+    single-card K1 output; scores within 1e-5 of one card's."""
+    import gnn_mwvc_tpu_torch.models.gnn as gnn_mod
+    import gnn_mwvc_tpu_torch.parallel.sharded as sharded_mod
+    from gnn_mwvc_tpu_torch.models import pretrained_model, score_graph
+    from gnn_mwvc_tpu_torch.parallel import (gather_scores, make_mesh,
+                                             make_sharded_forward,
+                                             partition_device_graph)
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+
+    def recorded(module, fn):
+        kernel, outs = module.csr_aggregate, []
+
+        def record(*args, **kw):
+            outs.append(kernel(*args, **kw))
+            return outs[-1]
+
+        module.csr_aggregate = record
+        try:
+            return fn(), outs
+        finally:
+            module.csr_aggregate = kernel
+
+    g = build_road_graph(150)
+    ws = float(g.weights.max())
+    dg = DeviceGraph.from_graph(g, "cuda:0")
+    model = pretrained_model("cuda:0")
+    single, want = recorded(gnn_mod, lambda: score_graph(model, dg, ws))
+    mesh = make_mesh(2)
+    sg = partition_device_graph(dg, 2, devices=mesh)
+    fwd = make_sharded_forward(model, mesh, x_is_node_weights=True)
+    before = _build.launches["csr_aggregate"]
+    outs, aggs = recorded(sharded_mod, lambda: fwd(sg, ws))
+    assert _build.launches["csr_aggregate"] - before == 2 * 2
+    for layer in range(2):
+        for p in range(2):
+            a = aggs[layer * 2 + p]
+            assert a.device == torch.device(f"cuda:{p}")
+            real = int(sg.shards[p].node_mask.sum())
+            lo = p * sg.n_loc
+            assert torch.equal(a[:real].cpu(),
+                               want[layer][lo:lo + real].cpu())
+    np.testing.assert_allclose(gather_scores(sg, outs),
+                               single.cpu().numpy()[:g.n], atol=1e-5, rtol=0)
+
+
 def test_precision_on_cuda_is_scoped(cuda):
     """"default" (TF32) then "highest" on the card: "highest" gives its
     first bits again, and the process's TF32 flag is what it was after each
