@@ -4,7 +4,8 @@ and on several where the machine has them (phase 14).
 
 Run from the repository root:  python3 chip_smoke.py [--time SECONDS]
                                python3 chip_smoke.py --multi-card
-(``--multi-card``: phases 1, 2 and 14 alone; it fails on fewer than 2 cards)
+(``--multi-card``: phases 1, 2 and 14 alone; it fails on fewer than 2 cards;
+without it one card runs phases 1-13 and 15)
 
 Phases, each printing one line of its own numbers; any failure exits
 non-zero:
@@ -135,6 +136,18 @@ non-zero:
                2e-5, ms of each per round and the size where they cross; (e)
                tools.kernel_dump on road300 (cut from road900) and
                tools.ls_run --variant perturb on its file for 10 s
+  15. scale - python -m gnn_mwvc_tpu_torch.tools.canonical road1600 --time
+               120 --seed 2 as a subprocess on the card (2,560,000 nodes,
+               the largest instance of the JAX package's records): exit 0
+               (the tool checks that the cover is valid and costs what it
+               says), its CSV line equal to its JSON record, the written
+               cover no dearer than the phase-1 cover, K1 launched in every
+               phase-1 round and K4 in the phase-2 assist,
+               kernel_edges_uncovered in the record; prints n, m, the kernel
+               size, phase 1 split into relabel, reduce, score, peel and the
+               rest, the sticky and per-snapshot rounds, LS steps, the
+               assist's batches, patches, gain and host share of phase 2,
+               and the card's peak allocation
 Then one JSON line of launch counts by path, one of per-kernel numbers, one
 of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
 2^16 enumeration, which are not hand kernels), and as the last line
@@ -2097,9 +2110,82 @@ def phase_multi_card(torch, g, side, seed):
     return by_path
 
 
+SCALE_ROAD = 1600           # phase 15's instance: 2,560,000 nodes
+SCALE_TIME = 120.0          # phase 15's canonical budget, seconds
+SCALE_SEED = 2              # the seed of the JAX package's road1600 record
+
+
+def phase_scale():
+    """Phase 15: the port's canonical tool on road1600 as a subprocess on the
+    card.  Returns its launch counts."""
+    import re
+    import tempfile
+
+    t0 = time.perf_counter()
+    k1, k4 = "csr_aggregate", "small_mwvc_mitm"
+    road = f"road{SCALE_ROAD}"
+    with tempfile.TemporaryDirectory(prefix="mwvc_scale_") as tmp:
+        path = os.path.join(tmp, "canonical.json")
+        text = run_surface(
+            "scale", "gnn_mwvc_tpu_torch.tools.canonical",
+            [road, "--time", SCALE_TIME, "--seed", SCALE_SEED, "--out", path],
+            need=(k1, k4), timeout=900)
+        with open(path) as f:
+            saved = json.load(f)
+    lines = text.splitlines()
+    rec = json_lines(text)[-1]
+    csv = [ln for ln in lines if ln.startswith(road + ",")]
+    want = f"{road},{rec['written']},{rec['best']},{rec['t_best']:.1f}"
+    if saved != rec or not csv or csv[-1] != want:
+        fail(f"scale: CSV line {csv[-1:]} or the saved record does not "
+             f"match the record {rec}")
+    size = re.search(r"^instance \S+: n=(\d+) m=(\d+)$", text, re.M)
+    done = re.search(r"^GNN-VC done in \S+s, cost: (\d+)$", text, re.M)
+    run = [json.loads(ln[len("run: "):]) for ln in lines
+           if ln.startswith("run: ")]
+    if not (size and done and run):
+        fail(f"scale: no size, phase-1 or run line in\n{text[-2000:]}")
+    n, m = int(size.group(1)), int(size.group(2))
+    phase1_cost, run = int(done.group(1)), run[-1]
+    sc, st = rec["scorer"], rec["assist"] or {}
+    launches = SURFACE_LAUNCHES["scale"]
+    n_k1, n_k4 = launches.get(k1, 0), launches.get(k4, 0)
+    if n != SCALE_ROAD ** 2 or rec["written"] > phase1_cost:
+        fail(f"scale: n={n}, written {rec['written']} over the phase-1 "
+             f"cover's {phase1_cost}")
+    if sc["rounds"] < 1 or n_k1 < 2 * sc["rounds"]:
+        fail(f"scale: K1 launched {n_k1} times over {sc['rounds']} phase-1 "
+             "rounds")
+    if st.get("batches", 0) < 1 or n_k4 < st["batches"]:
+        fail(f"scale: K4 launched {n_k4} times, assist {st}")
+    if "kernel_edges_uncovered" not in sc:
+        fail(f"scale: no kernel_edges_uncovered in {sc}")
+    t_p1 = rec["t_gnn"]
+    parts = {k: sc.get(k, 0.0) for k in
+             ("t_cluster_s", "t_reduce0_s", "t_score_s", "t_peel_s")}
+    phase2 = rec["wall"] - t_p1
+    print(f"scale {road} (--time {SCALE_TIME:g} --seed {SCALE_SEED}): "
+          f"n={n} m={m}, kernel {run['kernel_size']}; phase 1 {t_p1} s (relabel "
+          f"{parts['t_cluster_s']:.3f}, reduce {parts['t_reduce0_s']:.3f}, "
+          f"score {parts['t_score_s']:.3f}, peel {parts['t_peel_s']:.3f}, "
+          f"rest {t_p1 - sum(parts.values()):.3f}), cost {phase1_cost}; "
+          f"rounds {sc['rounds'] - sc['legacy_rounds']} sticky + "
+          f"{sc['legacy_rounds']} per snapshot; kernel_edges_uncovered "
+          f"{sc['kernel_edges_uncovered']}")
+    print(f"scale {road}: {csv[-1]}; ls_steps {rec['ls_steps']}; assist "
+          f"batches {st['batches']}, patches {st['patches']}, gain "
+          f"{st['gain']}, t_host_s {st['t_host_s']:.3f} "
+          f"({st['t_host_s'] / phase2:.1%} of phase 2's {phase2:.1f} s), "
+          f"t_device_s {st['t_device_s']:.3f}, wide_skipped "
+          f"{st['wide_skipped']}; launches {launches}; peak card allocation "
+          f"{run['peak_device_bytes']} B (torch.cuda.max_memory_allocated)")
+    print(f"phase 15: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--time", type=float, default=150.0,
+    ap.add_argument("--time", type=float, default=100.0,
                     help="solve() time limit on the road-like graph")
     ap.add_argument("--side", type=int, default=ROAD_SIDE,
                     help="road-like graph side (side^2 nodes)")
@@ -2228,11 +2314,15 @@ def main():
         print(f"phase 14 (multi-card): not run: {cards} CUDA card, it needs "
               "2 or more")
     del g
+    torch.cuda.empty_cache()
+
+    # 15. the canonical protocol on road1600, the largest recorded instance
+    by_path["scale"] = phase_scale()
 
     timing = ("ms, plain_ms, library_ms: eager calls between CUDA events; "
               "device_ms, library_device_ms: a CUDA graph of 20 calls")
     by_path = {"solve": launches, "train": train_launches, **by_path}
-    print(f"smoke: phases 1-{14 if cards >= 2 else 13} in "
+    print(f"smoke: phases 1-{14 if cards >= 2 else 13} and 15 in "
           f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [

@@ -4,7 +4,11 @@ of small rounds, the device assist when the solve runs on a card).  Prints the r
 ``[graph],[VC written],[best seen],[time to best]`` and then a JSON record,
 after checking that the written cover is valid and costs what it says.
 The record has the JAX tool's keys (no relay probe); its ``scorer`` holds
-the scorer's stats and the phase-1 split.
+the scorer's stats and the phase-1 split (its ``rounds`` is the split's:
+every peel round, sticky and per snapshot; ``legacy_rounds`` the per-snapshot
+ones).  A ``run:`` line before the CSV line gives what the record does not:
+the kernel's size and the card's peak allocation
+(``torch.cuda.max_memory_allocated``, null on the CPU).
 
 Usage:
     python -m gnn_mwvc_tpu_torch.tools.canonical road900 [--time 1000]
@@ -17,6 +21,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import torch
 
 from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
 from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device, solve
@@ -56,6 +62,10 @@ def main(argv=None):
         raise RuntimeError(f"the written cover costs "
                            f"{cover_cost(g, res.solution)}, not {res.cost}")
 
+    run = {"kernel_size": int(res.kernel_size),
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None)}
+    print("run: " + json.dumps(run), flush=True)
     phase1 = dict(res.phase1)
     rec = {
         "instance": args.instance, "tag": args.tag, "seed": args.seed,

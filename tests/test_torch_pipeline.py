@@ -156,6 +156,9 @@ def test_port_imports_no_jax():
         "assert kernel_dump.main(['--instance', 'road20', '--out', stem,\n"
         "                         '--device', 'cpu']) == 0\n"
         "assert ls_run.main([stem + '.kern', '--steps', '5000']) == 0\n"
+        "from gnn_mwvc_tpu_torch.tools import watch\n"
+        "assert watch.main(['--every', '1', *out('wt.json')[:2], '--',\n"
+        "                   sys.executable, '-c', 'pass']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jaxlib') or m == 'gnn_mwvc_tpu'\n"
         "       or m.startswith('gnn_mwvc_tpu.') or m == 'bench'\n"
