@@ -138,7 +138,12 @@ non-zero:
                tools.ls_run --variant perturb on its file for 10 s
   15. scale - python -m gnn_mwvc_tpu_torch.tools.canonical road1600 --time
                120 --seed 2 as a subprocess on the card (2,560,000 nodes,
-               the largest instance of the JAX package's records): exit 0
+               the largest instance of the JAX package's records), run from
+               a copy of gnn_mwvc_tpu_torch/ alone in a temporary directory
+               (no _build/, no JAX package; cwd and PYTHONPATH that
+               directory), so g++ builds the core from the copy's core/src
+               and nvcc the kernels from its csrc/: both libraries built in
+               the copy, exit 0
                (the tool checks that the cover is valid and costs what it
                says), its CSV line equal to its JSON record, the written
                cover no dearer than the phase-1 cover, K1 launched in every
@@ -146,8 +151,9 @@ non-zero:
                kernel_edges_uncovered in the record; prints n, m, the kernel
                size, phase 1 split into relabel, reduce, score, peel and the
                rest, the sticky and per-snapshot rounds, LS steps, the
-               assist's batches, patches, gain and host share of phase 2,
-               and the card's peak allocation
+               assist's batches, patches (wide_patches: those that flip
+               more than 16 vertices), gain and host share of phase 2, and
+               the card's peak allocation
 Then one JSON line of launch counts by path, one of per-kernel numbers, one
 of the plain-torch device ops (``device_ops``: the rule masks, r5 and the
 2^16 enumeration, which are not hand kernels), and as the last line
@@ -892,20 +898,20 @@ LAUNCH_PROBE = (
     "            [what, dict(_build.launches)]) + '\\n')\n")
 
 
-def run_surfaces(runs, timeout=600):
+def run_surfaces(runs, timeout=600, root=HERE):
     """Port entry points ``(what, target, args, need)``, a module or a
-    script file each, in one subprocess of this interpreter from the
-    checkout, which saves each one's start-up (~10 s on the card's
-    machine).  A non-zero exit fails the smoke, and so does a kernel of
-    ``need`` that an entry point never launched.  Returns each one's
-    stdout, by what."""
+    script file each, in one subprocess of this interpreter from ``root``
+    (the checkout, or a directory that holds a copy of the port), which
+    saves each one's start-up (~10 s on the card's machine).  A non-zero
+    exit fails the smoke, and so does a kernel of ``need`` that an entry
+    point never launched.  Returns each one's stdout, by what."""
     t0 = time.perf_counter()
     spec = [[what, target, [str(a) for a in args]]
             for what, target, args, _need in runs]
     out = subprocess.run(
         [sys.executable, "-c", LAUNCH_PROBE, json.dumps(spec)],
-        capture_output=True, text=True, timeout=timeout, cwd=HERE,
-        env=dict(os.environ, PYTHONPATH=HERE))
+        capture_output=True, text=True, timeout=timeout, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
     if out.returncode != 0:
         fail(f"{[r[0] for r in runs]}: exit {out.returncode}\n"
              f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
@@ -934,9 +940,9 @@ def run_surfaces(runs, timeout=600):
     return texts
 
 
-def run_surface(what, target, args, need=(), timeout=300):
+def run_surface(what, target, args, need=(), timeout=300, root=HERE):
     """One entry point in a subprocess of its own; returns its stdout."""
-    return run_surfaces([(what, target, args, need)], timeout)[what]
+    return run_surfaces([(what, target, args, need)], timeout, root)[what]
 
 
 def phase_surfaces(seed):
@@ -2117,21 +2123,32 @@ SCALE_SEED = 2              # the seed of the JAX package's road1600 record
 
 def phase_scale():
     """Phase 15: the port's canonical tool on road1600 as a subprocess on the
-    card.  Returns its launch counts."""
+    card, from a copy of the port that stands alone: the copy builds its
+    core and its kernels from its own sources.  Returns its launch
+    counts."""
     import re
+    import shutil
     import tempfile
 
     t0 = time.perf_counter()
     k1, k4 = "csr_aggregate", "small_mwvc_mitm"
     road = f"road{SCALE_ROAD}"
     with tempfile.TemporaryDirectory(prefix="mwvc_scale_") as tmp:
+        port = os.path.join(tmp, "gnn_mwvc_tpu_torch")
+        shutil.copytree(os.path.join(HERE, "gnn_mwvc_tpu_torch"), port,
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
         path = os.path.join(tmp, "canonical.json")
         text = run_surface(
             "scale", "gnn_mwvc_tpu_torch.tools.canonical",
             [road, "--time", SCALE_TIME, "--seed", SCALE_SEED, "--out", path],
-            need=(k1, k4), timeout=900)
+            need=(k1, k4), timeout=900, root=tmp)
         with open(path) as f:
             saved = json.load(f)
+        built = sorted(os.listdir(os.path.join(port, "_build")))
+        for lib in ("libmwvc_core.so", "libgnn_mwvc_kernels.so"):
+            if lib not in built:
+                fail(f"scale: the copy built no {lib} (its _build/: {built})")
     lines = text.splitlines()
     rec = json_lines(text)[-1]
     csv = [ln for ln in lines if ln.startswith(road + ",")]
@@ -2176,9 +2193,11 @@ def phase_scale():
           f"batches {st['batches']}, patches {st['patches']}, gain "
           f"{st['gain']}, t_host_s {st['t_host_s']:.3f} "
           f"({st['t_host_s'] / phase2:.1%} of phase 2's {phase2:.1f} s), "
-          f"t_device_s {st['t_device_s']:.3f}, wide_skipped "
-          f"{st['wide_skipped']}; launches {launches}; peak card allocation "
+          f"t_device_s {st['t_device_s']:.3f}, wide_patches "
+          f"{st['wide_patches']}; launches {launches}; peak card allocation "
           f"{run['peak_device_bytes']} B (torch.cuda.max_memory_allocated)")
+    print(f"scale: run from a copy of the port alone ({built} built there "
+          "from its core/src and csrc/)")
     print(f"phase 15: {time.perf_counter() - t0:.3f} s")
     return launches
 

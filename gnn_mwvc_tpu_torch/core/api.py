@@ -1,18 +1,21 @@
 """ctypes bindings for the native MWVC host core.
 
 The reversible graph, the reduction rules, branch-and-reduce, local search
-and unfold are C++ host code that this package shares with the JAX package
-and does not port: g++ compiles ``gnn_mwvc_tpu/core/src/capi.cpp`` (with the
-headers beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at
-first use.  The sources are only read; no Python of the JAX package runs and
-nothing is written next to them.  These bindings cover what the port calls:
-the kernelisation engine (``CoreSolver``), the phase-2 local search
-(``CoreLocalSearch``), two orderings, the CSR relabel behind
-``Graph.reorder`` (``relabel_csr``), the threaded CPU forward that scores
-snapshots on the host (``cpu_forward_native``), and the constructions and
-baseline solvers behind the approximation solver, the ablation grid and
-``mwvc-baseline-torch``.  Not bound: the windowed-MXU plans
-(``pair_order``, ``blocked_pack``), which K1 replaced.
+and unfold are C++ host code.  The port owns its copy of it
+(``gnn_mwvc_tpu_torch/core/src/``): the JAX package's sources, byte for
+byte, apart from one repair in ``localsearch.hpp`` (``apply_region``'s
+buffer of flipped vertices holds all 32 a patch mask can name, where the
+JAX copy holds 16).  g++ compiles ``core/src/capi.cpp`` (with the headers
+beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
+``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
+(``core/sanitize.sh`` passes a sanitizer build that way).  These bindings
+cover what the port calls: the kernelisation engine (``CoreSolver``), the
+phase-2 local search (``CoreLocalSearch``), two orderings, the CSR relabel
+behind ``Graph.reorder`` (``relabel_csr``), the threaded CPU forward that
+scores snapshots on the host (``cpu_forward_native``), and the
+constructions and baseline solvers behind the approximation solver, the
+ablation grid and ``mwvc-baseline-torch``.  Not bound: the windowed-MXU
+plans (``pair_order``, ``blocked_pack``), which K1 replaced.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ __all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
            "approx_cover", "greedy_cover", "baseline_solve", "BASELINE_IDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "gnn_mwvc_tpu", "core", "src")
+SRC_DIR = os.path.join(_PKG, "core", "src")
 LIB_PATH = os.path.join(_PKG, "_build", "libmwvc_core.so")
 _SOURCES = ("capi.cpp", "revgraph.hpp", "solver.hpp", "localsearch.hpp",
             "heuristics.hpp", "baselines.hpp", "cpuforward.hpp")
@@ -133,9 +136,13 @@ _SIGNATURES = {
 
 
 def build() -> str:
-    """Compile the core into LIB_PATH unless it is newer than its sources.
-    Built to a temporary file and renamed, so a process that already mapped
-    the old library keeps a valid file."""
+    """Compile the core into LIB_PATH unless it is newer than its sources,
+    or return ``$MWVC_CORE_LIB`` unbuilt when it is set.  Built to a
+    temporary file and renamed, so a process that already mapped the old
+    library keeps a valid file."""
+    override = os.environ.get("MWVC_CORE_LIB")
+    if override:
+        return override
     srcs = [os.path.join(SRC_DIR, s) for s in _SOURCES]
     if os.path.exists(LIB_PATH):
         lib_mtime = os.path.getmtime(LIB_PATH)

@@ -17,9 +17,9 @@ layout parses)::
     ...
     Sigmoid_Activation
 
-The published SEA-2022 weights are read from the JAX package's copy
-(``gnn_mwvc_tpu/models/weights/gnn_vc_sea2022.txt``), so one copy of the
-data exists.
+The published SEA-2022 weights ship with the port
+(``gnn_mwvc_tpu_torch/models/weights/gnn_vc_sea2022.txt``, the same bytes
+as the JAX package's file).
 """
 
 from __future__ import annotations
@@ -34,10 +34,8 @@ __all__ = ["ModelSpec", "dumps_model", "loads_model", "load_model",
            "load_pretrained", "params_from_jax", "params_to_jax", "save_model",
            "PRETRAINED_PATH"]
 
-PRETRAINED_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "gnn_mwvc_tpu", "models", "weights", "gnn_vc_sea2022.txt",
-)
+PRETRAINED_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "weights", "gnn_vc_sea2022.txt")
 
 _KIND_TO_TOKEN = {
     "linear": "Linear_Layer",

@@ -7,7 +7,9 @@ model misfit (``CoreLocalSearch.extract_regions``: intra-region edges must be
 covered; a region vertex with an outside non-cover neighbour is forced in
 through a self-loop bit).  Kernel K4 (``ops/smallsolve_mitm.py``) solves a
 batch exactly, and strictly improving assignments are re-validated against
-the live cover and patched back (``apply_region`` + ``commit_patches``).
+the live cover and patched back (``apply_region`` + ``commit_patches``
+of the port's copy of the core, ``core/src/localsearch.hpp``, which takes a
+patch that flips any number of a region's up to 20 vertices).
 
 On CUDA one batch is in flight at a time, all on a dedicated stream: upload
 from pinned host buffers, K4, copy back into pinned buffers, record an event.
@@ -26,14 +28,12 @@ import torch
 
 from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
 
-__all__ = ["DeviceAssist", "MAX_PATCH_FLIPS"]
+__all__ = ["DeviceAssist"]
 
-# The shared core's apply_region (gnn_mwvc_tpu/core/src/localsearch.hpp)
-# records the vertices a patch flips in a stack buffer of 16 entries, so a
-# width-20 region whose assignment flips more than 16 vertices would write
-# past it.  The assist never offers such a patch; ``stats["wide_skipped"]``
-# counts the improving ones it left out.
-MAX_PATCH_FLIPS = 16
+# ``stats["wide_patches"]`` counts the applied patches that flip more than
+# this many vertices: the ones a 16-entry buffer of flipped vertices (the JAX
+# package's copy of the core) could not hold.
+WIDE_FLIPS = 16
 
 
 class DeviceAssist:
@@ -56,10 +56,10 @@ class DeviceAssist:
         self._rng = np.random.default_rng(seed)
         self._pool = None
         self._pool_pos = 0
-        self._pending = None  # (ids, ks, w) of the batch in flight
+        self._pending = None  # (ids, ks) of the batch in flight
         self._result = None   # (best_cost, best_set) host arrays once ready
         self.stats = {"batches": 0, "regions": 0, "patches": 0, "gain": 0,
-                      "commits": 0, "wide_skipped": 0, "t_host_s": 0.0,
+                      "commits": 0, "wide_patches": 0, "t_host_s": 0.0,
                       "t_device_s": 0.0}
         if self.device.type == "cuda":
             shape = (self.batch, self.width)
@@ -111,21 +111,17 @@ class DeviceAssist:
         self._pool_pos += self.batch
         return c
 
-    def _narrow(self, ls, rows, ids, ks, w, bs):
-        """The rows of ``rows`` whose assignment flips at most
-        MAX_PATCH_FLIPS vertices of the live cover; counts the improving
-        ones left out in ``stats["wide_skipped"]``."""
-        if self.width <= MAX_PATCH_FLIPS or not len(rows):
-            return rows
+    def _wide(self, ls, rows, ids, ks, bs):
+        """Whether each region of ``rows`` has an assignment that flips more
+        than WIDE_FLIPS vertices of the live cover.  The regions are
+        disjoint, so one read of the cover serves the whole batch."""
+        if self.width <= WIDE_FLIPS or not len(rows):
+            return np.zeros(len(rows), bool)
         j = np.arange(self.width)
         inside = j < ks[rows, None]
         new = (((bs[rows, None] >> j) & 1) == 1) & inside
         now = ls.current()[ids[rows]].astype(bool) & inside
-        wide = (new != now).sum(1) > MAX_PATCH_FLIPS
-        better = (np.where(new, w[rows], 0).sum(1)
-                  < np.where(now, w[rows], 0).sum(1))
-        self.stats["wide_skipped"] += int((wide & better).sum())
-        return rows[~wide]
+        return (new != now).sum(1) > WIDE_FLIPS
 
     # -- batch lifecycle ---------------------------------------------------
     def _dispatch(self, adj: np.ndarray, w: np.ndarray):
@@ -168,14 +164,16 @@ class DeviceAssist:
             if not self._ready():
                 self.stats["t_host_s"] += time.perf_counter() - t0
                 return 0
-            ids, ks, w = self._pending
+            ids, ks = self._pending
             self._pending = None
             _bc, bs = self._result
             cost_before = ls.cost
-            for i in self._narrow(ls, np.nonzero(ks)[0], ids, ks, w, bs):
+            rows = np.nonzero(ks)[0]
+            for i, wide in zip(rows, self._wide(ls, rows, ids, ks, bs)):
                 k = int(ks[i])
                 if ls.apply_region(k, ids[i, :k], int(bs[i])):
                     applied += 1
+                    self.stats["wide_patches"] += int(wide)
             if applied:
                 ls.commit_patches()
                 self.stats["commits"] += 1
@@ -194,7 +192,7 @@ class DeviceAssist:
                 ks = np.pad(ks, (0, pad))
             self.stats["regions"] += int((ks > 0).sum())
             self._dispatch(adj, w)
-            self._pending = (ids, ks, w)
+            self._pending = (ids, ks)
         self.stats["t_host_s"] += time.perf_counter() - t0
         return applied
 

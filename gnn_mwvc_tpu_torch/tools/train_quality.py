@@ -9,7 +9,9 @@ per-snapshot ``GnnScorer``:
 
   * the phase-1 cover (``time_limit=0``: the GNN peel alone, the model's
     direct contribution), and
-  * the best cover seen at ``--eval-budget`` seconds.
+  * the best cover seen at ``--eval-budget`` seconds, and that solve's
+    assist counts (``assist``: batches, patches, ``wide_patches``; null
+    where the solve ran without the assist).
 
 The corpus and held-out graphs are the JAX tool's, bit for bit (the port's
 ``random_graph``, ``powerlaw_graph`` and ``build_road_graph``).  ``corpus``
@@ -147,7 +149,8 @@ def main(argv=None):
                          scorer=GnnScorer(model, device))
             res = solve(g, time_limit=args.eval_budget, device=device,
                         scorer=GnnScorer(model, device), ls_seed=5)
-            row[tag] = {"phase1": int(res0.cost), "final": int(res.best_seen)}
+            row[tag] = {"phase1": int(res0.cost), "final": int(res.best_seen),
+                        "assist": res.assist_stats}
         row["delta_final_pct"] = pct(row["trained"]["final"],
                                      row["published"]["final"])
         row["delta_phase1_pct"] = pct(row["trained"]["phase1"],

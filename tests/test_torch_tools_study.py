@@ -70,6 +70,7 @@ def test_train_quality_runs_a_small_corpus(tmp_path, monkeypatch, capsys):
     assert row["name"] == "grid60" and row["n"] == 3600
     for tag in ("published", "trained"):
         assert 0 < row[tag]["final"] <= row[tag]["phase1"]
+        assert row[tag]["assist"] is None     # the CPU solve: no assist
     assert last["worst_final_delta_pct"] == rep["worst_final_delta_pct"]
 
 
