@@ -36,7 +36,11 @@ non-zero:
                kernel launch counters reset just before: a valid cover, K1
                launched in phase 1, K4 launched by the phase-2 assist; the
                sticky scorer's rounds under 4M live edges scored per
-               snapshot on the card (at least one; their count printed)
+               snapshot on the card (at least one; their count printed);
+               no kernel edge left open by the peel (the folds the core
+               refused on a dependent neighbourhood printed).  Every phase
+               that runs a phase 1 (6, 9, 10b, 13d, 15) fails on an open
+               kernel edge and prints the refused folds
      regions - K4 on 1024 regions extracted from a local search over the
                road-like graph and solve()'s cover, as the assist extracts
                them: bitwise equal to the plain version; region sizes, ms
@@ -58,7 +62,12 @@ non-zero:
   9. surfaces - on a road-like (side 300) and a random instance written as
                METIS files, each as a subprocess on the card: gnn-vc-torch
                --quick, gnn-vc-torch (every round per snapshot, K1 in each
-               round; its phase-1 split), mwvc-batch-torch --json over both, solve() with a
+               round; its phase-1 split), gnn-vc-torch on the road-like
+               graph (1,440,000 nodes, its METIS file written first) at
+               --time 0 with every round per snapshot, the path on which the
+               JAX package's core leaves a kernel edge open (a valid cover,
+               no open edge, the refused folds printed), mwvc-batch-torch
+               --json over both, solve() with a
                checkpoint then resume_solve() in a new process, mwvc-bench-
                torch on the road-like instance (our, approximation and
                baseline rows) and mwvc-tools-torch vc-validate; any non-zero
@@ -147,8 +156,8 @@ non-zero:
                (the tool checks that the cover is valid and costs what it
                says), its CSV line equal to its JSON record, the written
                cover no dearer than the phase-1 cover, K1 launched in every
-               phase-1 round and K4 in the phase-2 assist,
-               kernel_edges_uncovered in the record; prints n, m, the kernel
+               phase-1 round and K4 in the phase-2 assist, no kernel edge
+               left open; prints n, m, the kernel
                size, phase 1 split into relabel, reduce, score, peel and the
                rest, the sticky and per-snapshot rounds, LS steps, the
                assist's batches, patches (wide_patches: those that flip
@@ -653,6 +662,21 @@ def phase_train(torch, seed):
     return launches
 
 
+def open_edges(p1):
+    """The phase-1 record's kernel edges left open and refused folds."""
+    return (f"kernel_edges_uncovered {p1.get('kernel_edges_uncovered')}, "
+            f"dependent_folds {p1.get('dependent_folds')}")
+
+
+def check_open_edges(p1, what):
+    """Fails unless the peel left no kernel edge open: the port's core
+    refuses the folds on a dependent neighbourhood that leave one (they are
+    counted in ``dependent_folds``, which must be recorded)."""
+    if p1.get("kernel_edges_uncovered") != 0 or "dependent_folds" not in p1:
+        fail(f"{what}: {open_edges(p1)}; the peel must leave no kernel edge "
+             "open")
+
+
 def phase_solve(torch, g, time_limit):
     import io
 
@@ -678,6 +702,7 @@ def phase_solve(torch, g, time_limit):
     if cover_cost(g, res.solution) != res.cost:
         fail("solve: cost does not match the cover")
     p1 = res.phase1
+    check_open_edges(p1, "solve")
     k1 = launches.get("csr_aggregate", 0)
     k4 = launches.get("small_mwvc_mitm", 0)
     if p1["rounds"] < 1 or k1 < 2 * p1["rounds"]:
@@ -698,7 +723,8 @@ def phase_solve(torch, g, time_limit):
     phase2 = res.time_total - res.time_gnn
     print(f"solve n={g.n} m={g.m} T={time_limit}: phase1 {res.time_gnn:.3f} s "
           f"(reduce {p1['t_reduce0_s']:.3f}, score {p1['t_score_s']:.3f}, "
-          f"peel {p1['t_peel_s']:.3f}, rounds {p1['rounds']}), phase2 "
+          f"peel {p1['t_peel_s']:.3f}, rounds {p1['rounds']}, "
+          f"{open_edges(p1)}), phase2 "
           f"{phase2:.3f} s, wall {wall:.3f} s; kernel {res.kernel_size}, "
           f"cost {res.cost}, best_seen {res.best_seen}, ls_steps {res.ls_steps}; "
           f"launches {launches}; scorer {json.dumps(p1.get('scorer'))}; "
@@ -945,10 +971,11 @@ def run_surface(what, target, args, need=(), timeout=300, root=HERE):
     return run_surfaces([(what, target, args, need)], timeout, root)[what]
 
 
-def phase_surfaces(seed):
+def phase_surfaces(seed, big):
     """Every new single-device entry point, each in its own process on the
     card (the default device).  Each one that scores with the GNN must
-    launch K1, and each one with a phase 2 must launch K4 in its assist."""
+    launch K1, and each one with a phase 2 must launch K4 in its assist.
+    ``big``: the road-like graph that gnn-vc-torch also solves at time 0."""
     import tempfile
 
     from gnn_mwvc_tpu_torch.graph import build_road_graph, random_graph
@@ -995,24 +1022,50 @@ def phase_surfaces(seed):
         checked_cover(sol_path, quick_cost, "gnn-vc-torch --quick")
 
         # the default: every round scored per snapshot (GnnScorer), on the
-        # card, K1 in each round and K4 in the phase-2 assist
+        # card, K1 in each round and K4 in the phase-2 assist; then the
+        # full road-like graph at time 0 (phase 1 alone), where the JAX
+        # package's core folds dependent neighbourhoods and leaves a kernel
+        # edge open.  One process for both.
+        big_road = f"road{int(round(big.n ** 0.5))}"
+        big_path = os.path.join(tmp, big_road + ".metis")
+        t0 = time.perf_counter()
+        write_metis(big_path, big)
+        t_write = time.perf_counter() - t0
+        big_what = f"gnn-vc-torch {big_road} --time 0"
         gnn_sol = os.path.join(tmp, road + ".gnn.sol")
-        rec = json.loads(run_surface(
-            "gnn-vc-torch", "gnn_mwvc_tpu_torch.solver.cli",
-            [paths[road], gnn_sol, t, "-1", "0", "--json"],
-            need=both).strip().splitlines()[-1])
-        p1 = rec["phase1"]
-        k1 = SURFACE_LAUNCHES["gnn-vc-torch"].get("csr_aggregate", 0)
-        if rec["device"] != "cuda" or p1["rounds"] < 1 or \
-                k1 < 2 * p1["rounds"]:
-            fail(f"gnn-vc-torch: K1 launched {k1} times over "
-                 f"{p1['rounds']} rounds: {rec}")
-        checked_cover(gnn_sol, rec["cost"], "gnn-vc-torch")
-        print(f"gnn-vc-torch {road}: per-snapshot phase 1 "
-              f"{rec['time_gnn']:.3f} s (reduce {p1['t_reduce0_s']:.3f}, score "
-              f"{p1['t_score_s']:.3f}, peel {p1['t_peel_s']:.3f}, rounds "
-              f"{p1['rounds']}), K1 {k1} launches; cost {rec['cost']}, best "
-              f"seen {rec['best_seen']}")
+        big_sol = os.path.join(tmp, big_road + ".gnn.sol")
+        cli = "gnn_mwvc_tpu_torch.solver.cli"
+        texts = run_surfaces([
+            ("gnn-vc-torch", cli,
+             [paths[road], gnn_sol, t, "-1", "0", "--json"], both),
+            (big_what, cli, [big_path, big_sol, "0", "-1", "0", "--json"],
+             ("csr_aggregate",))])
+        for what, name, graph, sol in (("gnn-vc-torch", road, g, gnn_sol),
+                                       (big_what, big_road, big, big_sol)):
+            rec = json.loads(texts[what].strip().splitlines()[-1])
+            p1 = rec["phase1"]
+            check_open_edges(p1, what)
+            k1 = SURFACE_LAUNCHES[what].get("csr_aggregate", 0)
+            if rec["device"] != "cuda" or p1["rounds"] < 1 or \
+                    k1 < 2 * p1["rounds"]:
+                fail(f"{what}: K1 launched {k1} times over "
+                     f"{p1['rounds']} rounds: {rec}")
+            if "scorer" in p1:   # GnnScorer keeps no stats; a sticky one does
+                fail(f"{what}: phase 1 was not scored per snapshot: {p1}")
+            cover = read_solution(sol)
+            if not is_vertex_cover(graph, cover) or \
+                    cover_cost(graph, cover) != rec["cost"]:
+                fail(f"{what}: the written cover is invalid or costs "
+                     f"{cover_cost(graph, cover)}, not {rec['cost']}")
+            print(f"{what} ({name}, n={rec['n']}): per-snapshot phase 1 "
+                  f"{rec['time_gnn']:.3f} s (reduce {p1['t_reduce0_s']:.3f}, "
+                  f"score {p1['t_score_s']:.3f}, peel {p1['t_peel_s']:.3f}, "
+                  f"rounds {p1['rounds']}), K1 {k1} launches; kernel "
+                  f"{rec['kernel_size']}; {open_edges(p1)}; cost "
+                  f"{rec['cost']}, best seen {rec['best_seen']}, ls_steps "
+                  f"{rec['ls_steps']}, {rec['time_total']:.3f} s in all")
+        print(f"{big_what}: its METIS file written in {t_write:.3f} s")
+        del cover
 
         out_dir = os.path.join(tmp, "batch")
         rows = [json.loads(ln) for ln in run_surface(
@@ -1323,6 +1376,7 @@ def phase_sharded_solve(torch, g, layouts, parts=SHARD_COUNTS[-1]):
         if not is_vertex_cover(g, res.solution) or \
                 cover_cost(g, res.solution) != res.cost:
             fail(f"sharded solve ({layout}): the cover is invalid")
+        check_open_edges(res.phase1, f"sharded solve ({layout})")
         mesh_rounds = scorer.stats["rounds"]
         k1 = launches.get("csr_aggregate", 0)
         if mesh_rounds < 1 or k1 < 2 * parts * mesh_rounds:
@@ -1339,7 +1393,8 @@ def phase_sharded_solve(torch, g, layouts, parts=SHARD_COUNTS[-1]):
               f"cover of cost {res.cost} in {res.time_gnn:.3f} s (reduce "
               f"{p1['t_reduce0_s']:.3f}, score {p1['t_score_s']:.3f}, peel "
               f"{p1['t_peel_s']:.3f}), {p1['rounds']} rounds ({mesh_rounds} "
-              f"on the mesh); single-device phase 1: cost {one.cost} in "
+              f"on the mesh), {open_edges(p1)}; single-device phase 1: cost "
+              f"{one.cost} ({open_edges(q1)}) in "
               f"{one.time_gnn:.3f} s (score {q1['t_score_s']:.3f}), "
               f"{q1['rounds']} rounds; difference {res.cost - one.cost}; "
               f"launches {launches}, K1 by card {by_card}; scorer "
@@ -1948,6 +2003,7 @@ def phase_last_surfaces(torch, g):
     if not is_vertex_cover(g, res.solution) or \
             cover_cost(g, res.solution) != res.cost:
         fail("per-snapshot split: solve() wrote an invalid cover")
+    check_open_edges(res.phase1, "per-snapshot split")
     rows = timed.rows
     if not rows or len(rows) != scorer.stats["legacy_rounds"]:
         fail(f"per-snapshot split: {len(rows)} rows for "
@@ -1963,7 +2019,8 @@ def phase_last_surfaces(torch, g):
               f"native CPU forward {tn * 1e3:.3f} ms, max |diff| {d:.3g}")
     print(f"per-snapshot rounds of road{ROAD_SIDE} phase 1 (time 0, cost "
           f"{res.cost}, {scorer.stats['rounds']} sticky + {len(rows)} per "
-          f"snapshot): card {sum(r[2] for r in rows):.3f} s, native "
+          f"snapshot; {open_edges(res.phase1)}): card "
+          f"{sum(r[2] for r in rows):.3f} s, native "
           f"{sum(r[3] for r in rows):.3f} s in all ({os.cpu_count()} host "
           f"threads); max |diff| {worst:.3g}; the card is faster from "
           f"{min(card_wins) if card_wins else None} directed edges, the "
@@ -2175,8 +2232,7 @@ def phase_scale():
              "rounds")
     if st.get("batches", 0) < 1 or n_k4 < st["batches"]:
         fail(f"scale: K4 launched {n_k4} times, assist {st}")
-    if "kernel_edges_uncovered" not in sc:
-        fail(f"scale: no kernel_edges_uncovered in {sc}")
+    check_open_edges(sc, "scale")
     t_p1 = rec["t_gnn"]
     parts = {k: sc.get(k, 0.0) for k in
              ("t_cluster_s", "t_reduce0_s", "t_score_s", "t_peel_s")}
@@ -2187,8 +2243,7 @@ def phase_scale():
           f"score {parts['t_score_s']:.3f}, peel {parts['t_peel_s']:.3f}, "
           f"rest {t_p1 - sum(parts.values()):.3f}), cost {phase1_cost}; "
           f"rounds {sc['rounds'] - sc['legacy_rounds']} sticky + "
-          f"{sc['legacy_rounds']} per snapshot; kernel_edges_uncovered "
-          f"{sc['kernel_edges_uncovered']}")
+          f"{sc['legacy_rounds']} per snapshot; {open_edges(sc)}")
     print(f"scale {road}: {csv[-1]}; ls_steps {rec['ls_steps']}; assist "
           f"batches {st['batches']}, patches {st['patches']}, gain "
           f"{st['gain']}, t_host_s {st['t_host_s']:.3f} "
@@ -2307,7 +2362,7 @@ def main():
     device_ops = phase_prepass(torch, g, int_ops_per_s) + [enum_op]
 
     # 9. the remaining single-device surfaces
-    phase_surfaces(args.seed)
+    phase_surfaces(args.seed, g)
 
     # 10. the multi-device path on the one card
     by_path = phase_sharded(torch, g, args.seed)

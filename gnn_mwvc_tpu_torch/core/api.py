@@ -3,10 +3,15 @@
 The reversible graph, the reduction rules, branch-and-reduce, local search
 and unfold are C++ host code.  The port owns its copy of it
 (``gnn_mwvc_tpu_torch/core/src/``): the JAX package's sources, byte for
-byte, apart from one repair in ``localsearch.hpp`` (``apply_region``'s
+byte, apart from two repairs.  In ``localsearch.hpp``, ``apply_region``'s
 buffer of flipped vertices holds all 32 a patch mask can name, where the
-JAX copy holds 16).  g++ compiles ``core/src/capi.cpp`` (with the headers
-beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
+JAX copy holds 16.  In ``revgraph.hpp`` and ``solver.hpp``, the
+independent-neighbourhood fold is made only when an order-free check agrees
+that N(u) is independent (a fold gadget's adjacency list is not sorted, and
+the JAX copy's sorted merge can pass a dependent N(u)); the refused folds
+are counted (``CoreSolver.dependent_folds``).  g++ compiles
+``core/src/capi.cpp`` (with the headers beside it) into
+``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
 ``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
 (``core/sanitize.sh`` passes a sanitizer build that way).  These bindings
 cover what the port calls: the kernelisation engine (``CoreSolver``), the
@@ -76,6 +81,8 @@ _SIGNATURES = {
     "mwvc_bulk_r5": ([_c, u32p, ct.c_uint32], ct.c_uint32),
     "mwvc_labels_from_model": ([_c], ct.c_uint64),
     "mwvc_mistakes_from_model": ([_c], ct.c_uint64),
+    "mwvc_dependent_folds": ([_c], ct.c_uint64),
+    "mwvc_neighbors_independent": ([_c, ct.c_uint32, ct.c_int], ct.c_int),
     "mwvc_bfs_order": ([ct.c_uint32, u64p, u32p, u32p], None),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
                            None),
@@ -355,6 +362,20 @@ class CoreSolver:
         """Peel entries skipped, over all peels, because the core had
         already decided the vertex against the model's label."""
         return int(self._lib.mwvc_mistakes_from_model(self._h))
+
+    @property
+    def dependent_folds(self):
+        """Independent-neighbourhood folds refused, over the whole solve,
+        because N(u) was not independent though the sorted merge passed it
+        (the JAX package's copy of the core makes those folds)."""
+        return int(self._lib.mwvc_dependent_folds(self._h))
+
+    def neighbors_independent(self, u, exact=True):
+        """Whether no two live neighbours of ``u`` are adjacent: the
+        order-free check, or with ``exact=False`` the sorted merge that the
+        fold rule tries first (wrong-true on a gadget's unsorted list)."""
+        return bool(self._lib.mwvc_neighbors_independent(self._h, u,
+                                                         int(exact)))
 
     def unfold(self, t=0):
         self._lib.mwvc_unfold(self._h, t)

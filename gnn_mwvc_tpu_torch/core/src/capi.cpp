@@ -317,6 +317,16 @@ u64 mwvc_mistakes_from_model(void *h) {
     return ((Solver *)h)->mistakes_from_model;
 }
 
+// Folds on a dependent neighbourhood that rule_independent_fold refused
+// (those of the exact component solves included): the JAX package's copy
+// of the core makes them.  exact = 0: the sorted-merge independence test
+// of N(u) that the rule tries first; else the order-free one.
+u64 mwvc_dependent_folds(void *h) { return ((Solver *)h)->dependent_folds; }
+int mwvc_neighbors_independent(void *h, u32 u, int exact) {
+    auto &g = ((Solver *)h)->g;
+    return exact ? g.neighbors_independent(u) : g.has_independent_neighbors(u);
+}
+
 void mwvc_unfold(void *h, u64 t) { ((Solver *)h)->unfold(t); }
 
 // Non-destructive full-solution preview: deep-copy the solver (RevGraph is

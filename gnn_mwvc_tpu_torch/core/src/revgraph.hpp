@@ -22,6 +22,10 @@
 // Sorted-order invariant: entries in each list are linked in ascending
 // neighbor id; fold gadget nodes get the largest id so tail-append keeps
 // order (the reference relies on the same fact, reduction_graph.hpp:376-396).
+// A gadget's own list is the exception: it holds the second neighbours in
+// fold_neighborhood's walk order, which is not sorted in general.  Every
+// predicate below that walks lists in order is safe with it (see each one),
+// and neighbors_independent reads no order at all.
 
 #pragma once
 #include <cassert>
@@ -395,7 +399,8 @@ class RevGraph {
     }
 
     // append an undirected edge (x, z) at both list tails; z must be the
-    // largest id so sorted order is preserved.
+    // largest id so x's list stays sorted.  z's own list takes the x in the
+    // order they come, fold_neighborhood's walk order: it is not sorted.
     void append_edge_tail(u32 x, u32 z) {
         u32 ez = (u32)arena.size();      // entry in z's list, nbr = x
         u32 ex = ez + 1;                 // entry in x's list, nbr = z
@@ -423,6 +428,9 @@ class RevGraph {
     }
 
     // ---- predicates (reference: reduction_graph.hpp:179-237) -----------
+    // Lists in order, entry by entry: true only when they agree entry for
+    // entry, so N(u) == N(v) whatever the order.  A gadget's unsorted list
+    // can only make it answer false for equal sets, a twin fold missed.
     bool is_twin(u32 u, u32 v) const {
         if (u == v || deg[u] != deg[v] || nw[u] != nw[v])
             return false;
@@ -437,7 +445,10 @@ class RevGraph {
     }
 
     // u dominates v: N(v) \ {u} subset of N(u), with degree and weighted
-    // pre-checks identical to the reference.
+    // pre-checks identical to the reference.  An entry of N(v) is passed only
+    // when an equal entry of N(u) is found, so true means the subset holds
+    // whatever the order; a gadget's unsorted list can only end the walk
+    // with false, a domination or isolated fold missed.
     bool is_dominating(u32 u, u32 v) const {
         if (deg[u] < deg[v] || (w[u] + nw[u]) < (w[v] + nw[v]))
             return false;
@@ -465,6 +476,9 @@ class RevGraph {
         return true;
     }
 
+    // The sorted merge of N(u) with each N(v).  false is always right (a
+    // common neighbour was found), but true is not when u or a neighbour is
+    // a gadget: its unsorted list can step past the common neighbour.
     bool has_independent_neighbors(u32 u) const {
         // no two neighbors adjacent <=> N(u) and N(v) disjoint for v in N(u)
         for (u32 e = first(u); !at_end(u, e); e = arena[e].next) {
@@ -479,6 +493,22 @@ class RevGraph {
                 else
                     b = arena[b].next;
             }
+        }
+        return true;
+    }
+
+    // Whether no two neighbours of u are adjacent, reading no list order:
+    // mark N(u), then look for a mark in each neighbour's list.
+    // O(sum of the neighbours' degrees).
+    bool neighbors_independent(u32 u) {
+        u32 mark = new_stamp();
+        for (u32 e = first(u); !at_end(u, e); e = arena[e].next)
+            stamp[arena[e].nbr] = mark;
+        for (u32 e = first(u); !at_end(u, e); e = arena[e].next) {
+            u32 v = arena[e].nbr;
+            for (u32 f = first(v); !at_end(v, f); f = arena[f].next)
+                if (stamp[arena[f].nbr] == mark)
+                    return false;
         }
         return true;
     }

@@ -216,6 +216,7 @@ class Solver {
     u32 n_org = 0;
 
     u64 labels_from_model = 0, mistakes_from_model = 0;
+    u64 dependent_folds = 0;  // folds refused by rule_independent_fold
 
     // ---- device bulk-apply support (solver/device_reduce.py) -----------
     // Device rule masks are computed on a snapshot; during the bulk-apply
@@ -367,7 +368,20 @@ class Solver {
             min_w = std::min(min_w, g.w[g.arena[e].nbr]);
         if (g.w[u] < g.nw[u] - min_w)
             return false;
-        if (g.has_independent_neighbors(u)) {
+        // This copy differs from the JAX package's here.  There the merge
+        // alone decides, and it can pass a dependent N(u) when u or a
+        // neighbour is a gadget (has_independent_neighbors); unfolding that
+        // fold with the gadget out leaves an edge inside N(u) open.  Here the
+        // order-free check must agree, and where it does not the case is
+        // counted and N(u) is taken.  That is exact: an edge inside N(u)
+        // costs at least min_w to cover, so a cover holding u pays at least
+        // w(u) + min_w >= NW(u) on N[u], what N(u) alone pays.
+        bool independent = g.has_independent_neighbors(u);
+        if (independent && !g.neighbors_independent(u)) {
+            dependent_folds++;
+            independent = false;
+        }
+        if (independent) {
             wl.label_count += g.deg[u];
             cnt.r[5] += g.deg[u];
             cost += g.w[u];
@@ -384,7 +398,12 @@ class Solver {
     }
 
     // N(v) \ (N(u) + {u}) with the reference's exact tail-copy and cutoff
-    // quirks (reference: mwvc_reductions.hpp:179-202).
+    // quirks (reference: mwvc_reductions.hpp:179-202).  Every entry of N(v)
+    // is written out unless it matches an equal entry of N(u) or is u, so
+    // out holds N(v) \ N[u] whatever the order; a gadget's unsorted list can
+    // only add entries of N(v) that are in N[u].  rule_neighbor_meta's
+    // C - VC is the heaviest independent set of G[out], which only grows as
+    // out grows, so an extra entry can only make the rule miss.
     void neighborhood_difference(u32 v, u32 u, std::vector<u32> &out,
                                  u32 cutoff) {
         u32 a = g.first(v), b = g.first(u);
@@ -732,6 +751,7 @@ inline void medium_solve(Solver &parent, std::vector<u32> &nodes) {
     Solver child;
     child.init(cn, wts.data(), eu.size(), eu.data(), ev.data());
     medium_solve_req(child);
+    parent.dependent_folds += child.dependent_folds;
 
     for (u32 i = 0; i < cn; ++i) {
         if (!g.active[nodes[i]])

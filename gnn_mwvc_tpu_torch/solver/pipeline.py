@@ -14,7 +14,7 @@
   finally: unfold all reductions and return the cover of the input graph.
 
 The GNN forward and the region solver are the only device work; the rest
-is the C++ core shared with the JAX package.
+is the port's own copy of the C++ core (core/src/).
 """
 
 from __future__ import annotations
@@ -105,10 +105,15 @@ def cover_uncovered_edges(cover: np.ndarray, edges: np.ndarray,
     first on a tie) of each edge that neither endpoint covers, edges taken
     in order; returns how many vertices were added.
 
-    The peel can leave a kernel edge with both endpoints decided out: the
-    shared native core does so on road1200 when every round is scored per
-    snapshot (the JAX package's solve alike).  The local search would keep
-    that start as its best, since it is cheaper than any cover."""
+    A check that should never add a vertex.  The JAX package's copy of the
+    native core can leave a kernel edge with both endpoints decided out (on
+    road1200 when every round is scored per snapshot): its fold of an
+    independent neighbourhood trusts a sorted merge, which can pass a
+    dependent one when a fold gadget, whose list is not sorted, is involved,
+    and unfolding with the gadget out leaves an edge inside it open.  The
+    port's copy refuses those folds (``phase1["dependent_folds"]`` counts
+    them), so a non-zero return is a fault.  The local search would keep
+    such a start as its best, since it is cheaper than any cover."""
     added = 0
     open_ = (cover[edges[:, 0]] == 0) & (cover[edges[:, 1]] == 0)
     for u, v in edges[open_]:
@@ -132,8 +137,9 @@ class SolveResult:
     ls_steps: int = 0
     assist_stats: Optional[dict] = None
     # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, the
-    # scorer's own stats under "scorer", and (with a kernel left)
-    # kernel_edges_uncovered, the vertices cover_uncovered_edges added
+    # scorer's own stats under "scorer", dependent_folds (the folds the
+    # core refused) and kernel_edges_uncovered, the vertices
+    # cover_uncovered_edges added (0 where nothing is left to cover)
     phase1: Optional[dict] = None
 
 
@@ -198,6 +204,7 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
         split["scorer"] = dict(scorer.stats)
         if metrics is not None:
             metrics.record_scorer(dict(scorer.stats))
+    split["dependent_folds"] = core.dependent_folds
     return t_kernel, kernel_size, initial_cost, split
 
 
@@ -287,6 +294,7 @@ def solve(
         return out
 
     if core.active_count == 0:
+        split["kernel_edges_uncovered"] = 0
         core.unfold(0)
         sol = core.solution()
         if (sol < 0).any():
@@ -303,6 +311,8 @@ def solve(
     keep = rows < snap.indices
     kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
     s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
+    # never non-zero since the core refuses folds on a dependent
+    # neighbourhood (cover_uncovered_edges): a count here is a fault
     split["kernel_edges_uncovered"] = cover_uncovered_edges(s0, kedges,
                                                             snap.weights)
     ls = CoreLocalSearch(snap.weights, kedges, s0)

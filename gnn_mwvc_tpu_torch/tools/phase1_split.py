@@ -13,7 +13,8 @@ phase-2 budget at 0 and no assist:
 and prints one JSON line each: phase-1 seconds (``time_gnn``), reduce /
 score / peel seconds and the rest outside those timers, rounds, the
 scorer's sticky and per-snapshot rounds where it has them, the kernel edges
-the peel left open, the cover's cost and the kernel launches (or the CLI's
+the peel left open and the folds the core refused (where the checkout
+counts them), the cover's cost and the kernel launches (or the CLI's
 exit code and last line when it fails).  The last line is a JSON list of every record.
 
 Usage:
@@ -58,6 +59,7 @@ def record(surface, p1, t_gnn, cost, launches):
             "legacy_rounds": sc.get("legacy_rounds"),
             "seconds_legacy": sc.get("seconds_legacy"),
             "kernel_edges_uncovered": p1.get("kernel_edges_uncovered"),
+            "dependent_folds": p1.get("dependent_folds"),
             "cost": cost, "launches": launches}
 
 

@@ -1,7 +1,9 @@
 """The port's own native-core bindings against the JAX package's.
 
-Both bind the same C++ sources; the port compiles them into its own
-``_build/`` directory.  Same inputs, same calls: the arrays must be equal.
+Both bind the same C++ sources but for the port's two repairs; the port
+compiles its copy into its own ``_build/`` directory.  Same inputs, same
+calls: the arrays must be equal, except where the JAX copy folds a
+dependent neighbourhood, which the port's copy refuses.
 """
 
 import os
@@ -16,6 +18,9 @@ from gnn_mwvc_tpu_torch import core
 from gnn_mwvc_tpu_torch.core import api
 from gnn_mwvc_tpu_torch.ops import rules
 from tests.conftest import random_graph
+from tests.test_torch_core_exact import (FAULT_SEEDS, branch_mwvc, covers,
+                                         exact_solve, gadget_graph,
+                                         random_peel)
 
 GRAPHS = {"road60": lambda: bench.build_road_graph(60),
           "er800": lambda: random_graph(800, 6, seed=11, wmax=300)}
@@ -238,3 +243,23 @@ def test_node_arrays_and_live_edges_equal_jax(name):
                     ref.select_node(int(u))
     act, _w, _nw, deg = ours.node_arrays()
     assert ours.live_edges() == int(deg[act.astype(bool)].sum())
+
+
+@pytest.mark.parametrize("n,seed", FAULT_SEEDS)
+def test_jax_core_faults_where_the_port_refuses_a_fold(n, seed):
+    """The brute-force seeds: the JAX package's copy of the core folds a
+    dependent neighbourhood and then leaves an edge open after the random
+    peel, or writes an exact solve that is no cover (cheaper than the
+    optimum).  The port's copy refuses that fold, and from the same calls
+    gives a cover after the peel and the optimum after the exact solve."""
+    g = gadget_graph(n, seed)
+    opt = branch_mwvc(g)
+    peeled = random_peel(jax_core.CoreSolver, g, seed).solution()
+    exact = exact_solve(jax_core.CoreSolver, g)
+    open_edge = not covers(g, peeled == 1)
+    missed = not covers(g, exact.solution() == 1) or exact.cost != opt
+    assert open_edge or missed
+    ours = random_peel(core.CoreSolver, g, seed)
+    assert covers(g, ours.solution() == 1) and ours.dependent_folds >= 1
+    assert exact_solve(core.CoreSolver, g).cost == opt
+

@@ -1,6 +1,8 @@
 """The port's own copy of the native core, by brute force: reduction
-exactness, undo round trips, local search, and the incremental dscores that
-patching keeps (the counterpart of ``tests/test_core.py``).
+exactness, undo round trips, local search, the incremental dscores that
+patching keeps (the counterpart of ``tests/test_core.py``), and the
+independent-neighbourhood fold that the copy refuses on a dependent
+neighbourhood.
 
 Only ``gnn_mwvc_tpu_torch.core`` and ``gnn_mwvc_tpu_torch.graph`` are used,
 so ``gnn_mwvc_tpu_torch/core/sanitize.sh`` can run this file against a
@@ -11,8 +13,9 @@ jax nor the JAX package).
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu_torch.core import CoreLocalSearch, CoreSolver, greedy_cover
-from gnn_mwvc_tpu_torch.graph import Graph, random_graph
+from gnn_mwvc_tpu_torch.core import (CoreLocalSearch, CoreSolver,
+                                     confidence_order_native, greedy_cover)
+from gnn_mwvc_tpu_torch.graph import Graph, build_road_graph, random_graph
 
 
 def covers(g: Graph, sel) -> bool:
@@ -232,3 +235,151 @@ def test_patch_flipping_all_20_vertices_keeps_scores_exact():
     np.testing.assert_array_equal(ls.current(), cur)
     np.testing.assert_array_equal(ls.dscores(), ds)
     assert ls.cost == cost
+
+
+def gadget_graph(n, seed):
+    """A small graph on which the core folds a fold gadget again.  Vertex 0
+    has neighbours 1 and 2, with weights that fold it; 1 is adjacent to the
+    largest id, 2 to the adjacent pair 5, 6; random sparse edges join
+    3..n-1.  The fold of 0 gives a gadget whose list runs n - 1, 5, 6, ...:
+    not sorted, so a sorted merge can miss the edge 5-6 inside it."""
+    rng = np.random.default_rng(seed)
+    p, q, big = 5, 6, n - 1
+    edges = {(0, 1), (0, 2), (1, big), (2, p), (2, q), (p, q)}
+    for _ in range(rng.integers(n // 2, 2 * n)):
+        a, b = rng.integers(3, n, size=2)
+        if a != b and {a, b} != {p, big} and {a, b} != {q, big}:
+            edges.add((min(a, b), max(a, b)))
+    w = rng.integers(1, rng.choice([10, 50, 200]), size=n)
+    w[1] = rng.integers(100, 400)
+    w[2] = rng.integers(100, 400)
+    w[0] = rng.integers(max(w[1], w[2]), w[1] + w[2])
+    return Graph(w, np.array(sorted(edges)))
+
+
+def branch_mwvc(g: Graph) -> int:
+    """Minimum cover weight by branching on a vertex of largest degree (it
+    is in the cover, or all of its neighbours are), memoised on the set of
+    vertices left: exact for the 40-vertex graphs here in well under 1 s."""
+    adj = [0] * g.n
+    for a, b in g.edge_array().tolist():
+        adj[a] |= 1 << b
+        adj[b] |= 1 << a
+    w = [int(x) for x in g.weights]
+    memo = {}
+
+    def bits(mask):
+        while mask:
+            low = mask & -mask
+            yield low.bit_length() - 1
+            mask ^= low
+
+    def best(alive):
+        if alive in memo:
+            return memo[alive]
+        v = max(bits(alive), key=lambda x: (adj[x] & alive).bit_count(),
+                default=0)
+        nb = adj[v] & alive
+        if not nb:
+            return 0
+        take_v = w[v] + best(alive & ~(1 << v))
+        take_nb = sum(w[x] for x in bits(nb)) + best(alive & ~nb & ~(1 << v))
+        memo[alive] = min(take_v, take_nb)
+        return memo[alive]
+
+    return best((1 << g.n) - 1)
+
+
+def exact_solve(core_cls, g):
+    """Reduce, solve every component exactly, unfold: the core."""
+    s = core_cls(g.weights, g.edge_array())
+    s.reduce(critical=True)
+    s.solve_small_components(75)
+    assert s.active_count == 0
+    s.unfold(0)
+    return s
+
+
+def random_peel(core_cls, g, seed):
+    """Reduce, then peel at seeded random scores in the pipeline's
+    confidence order until nothing is left, and unfold: the core."""
+    s = core_cls(g.weights, g.edge_array())
+    s.reduce()
+    rng = np.random.default_rng(seed)
+    while s.active_count > 0:
+        snap = s.snapshot()
+        prob = rng.random(snap.n).astype(np.float32)
+        order = confidence_order_native(prob, snap.weights, snap.deg, 1e-4)
+        s.reset_label_count()
+        s.peel(snap.ids[order], prob[order], -1)
+    s.unfold(0)
+    return s
+
+
+# gadget_graph seeds (of 0-11,999 at n = 16, 24, 30, 36, 40) on which the
+# JAX package's copy of the core folds a dependent neighbourhood and then
+# leaves an edge open after random_peel or writes an invalid exact_solve
+FAULT_SEEDS = [(16, 8366), (16, 9146), (24, 2523), (24, 2598), (30, 1076),
+               (36, 252), (40, 245)]
+
+
+@pytest.mark.parametrize("n,seed", FAULT_SEEDS)
+def test_refused_fold_keeps_the_cover_valid_and_exact(n, seed):
+    """Where the JAX copy folds a dependent neighbourhood, the port's
+    refuses (and counts) the fold: its exact solve is the brute-force
+    optimum and its peel's cover is valid."""
+    g = gadget_graph(n, seed)
+    exact = exact_solve(CoreSolver, g)
+    sol = exact.solution()
+    assert (sol >= 0).all() and covers(g, sol)
+    assert cost_of(g, sol) == exact.cost == branch_mwvc(g)
+    peeled = random_peel(CoreSolver, g, seed)
+    sol = peeled.solution()
+    assert (sol >= 0).all() and covers(g, sol)
+    assert cost_of(g, sol) == peeled.cost
+    assert exact.dependent_folds >= 1 and peeled.dependent_folds >= 1
+
+
+@pytest.mark.parametrize("n", [12, 24, 32])
+def test_gadget_graphs_solve_exactly(n):
+    """The first 60 gadget_graph seeds at n vertices: exact solves equal to
+    the brute-force optimum and peels that give covers (at 12 vertices the
+    branching optimum is also held to the subset enumeration)."""
+    for seed in range(60):
+        if n == 12 and seed < 5:
+            assert branch_mwvc(gadget_graph(n, seed)) == brute_force_mwvc(
+                gadget_graph(n, seed))
+        g = gadget_graph(n, seed)
+        assert exact_solve(CoreSolver, g).cost == branch_mwvc(g), seed
+        assert covers(g, random_peel(CoreSolver, g, seed).solution()), seed
+
+
+def test_neighbors_independent_is_the_set_check_on_gadget_snapshots():
+    """On three snapshots of a road60 (seed 1) peel, each holding fold
+    gadgets: the order-free check is the set check for every live vertex.
+    The sorted merge is never wrong when it answers dependent, but it
+    passes some dependent neighbourhoods, each of a gadget or of a vertex
+    with two gadget neighbours (a sorted list meets a sorted list)."""
+    g = build_road_graph(60, seed=1)
+    core = CoreSolver(g.weights, g.edge_array())
+    core.reduce()
+    rng = np.random.default_rng(0)
+    passed = 0
+    for _ in range(3):
+        snap = core.snapshot()
+        gadget = snap.ids >= g.n
+        assert gadget.any()
+        nbrs = [set(snap.indices[snap.indptr[i]:snap.indptr[i + 1]].tolist())
+                for i in range(snap.n)]
+        for i, u in enumerate(snap.ids.tolist()):
+            independent = not any(nbrs[i] & nbrs[v] for v in nbrs[i])
+            assert core.neighbors_independent(u) is independent
+            merge = core.neighbors_independent(u, exact=False)
+            assert merge or not independent
+            if merge and not independent:
+                assert gadget[i] or gadget[list(nbrs[i])].sum() >= 2
+                passed += 1
+        prob = rng.random(snap.n).astype(np.float32)
+        core.reset_label_count()
+        core.peel(snap.ids, prob, -1)
+    assert passed >= 1
