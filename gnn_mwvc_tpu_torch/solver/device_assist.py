@@ -17,16 +17,25 @@ from pinned host buffers, K4, copy back into pinned buffers, record an event.
 that releases the GIL) runs while the GPU works.  On the CPU the batch is
 solved synchronously inside ``tick()`` by K4's plain version.  A failure
 raises; nothing falls back to another path.
+
+Each ``tick()`` is the span ``assist`` (``stats["t_host_s"]`` sums its
+seconds) with four children: ``assist.sample`` (centre sampling and, every
+``pool_mult`` batches, the pool's refill), ``assist.extract``
+(``extract_regions`` and the padding), ``assist.apply`` (the
+``apply_region`` loop with ``_wide`` and ``commit_patches``) and
+``assist.dispatch`` (the poll of the batch in flight and the next batch's
+start; on the CPU the whole solve, ``stats["t_device_s"]`` there).
+``assist`` and ``assist.dispatch`` may launch device work and open no
+profiler range.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 
 from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
+from gnn_mwvc_tpu_torch.utils.metrics import span
 
 __all__ = ["DeviceAssist"]
 
@@ -127,11 +136,9 @@ class DeviceAssist:
     def _dispatch(self, adj: np.ndarray, w: np.ndarray):
         """Start solving one (batch, width) region batch."""
         if self.device.type != "cuda":
-            t0 = time.perf_counter()
             bc, bs = small_mwvc_mitm(torch.from_numpy(adj),
                                      torch.from_numpy(w))
             self._result = (bc.numpy(), bs.numpy())
-            self.stats["t_device_s"] += time.perf_counter() - t0
             return
         self._h_adj.numpy()[:] = adj
         self._h_w.numpy()[:] = w
@@ -158,42 +165,53 @@ class DeviceAssist:
         """Collect a finished batch (patching its improvements into ``ls``)
         and dispatch the next; returns the patches applied now.  Never
         waits for the device."""
-        t0 = time.perf_counter()
+        with span("assist", launches=True) as sp:
+            applied = self._tick(ls)
+        self.stats["t_host_s"] += sp.seconds
+        return applied
+
+    def _tick(self, ls) -> int:
         applied = 0
         if self._pending is not None:
-            if not self._ready():
-                self.stats["t_host_s"] += time.perf_counter() - t0
+            with span("assist.dispatch", launches=True):
+                ready = self._ready()
+            if not ready:
                 return 0
             ids, ks = self._pending
             self._pending = None
             _bc, bs = self._result
-            cost_before = ls.cost
-            rows = np.nonzero(ks)[0]
-            for i, wide in zip(rows, self._wide(ls, rows, ids, ks, bs)):
-                k = int(ks[i])
-                if ls.apply_region(k, ids[i, :k], int(bs[i])):
-                    applied += 1
-                    self.stats["wide_patches"] += int(wide)
-            if applied:
-                ls.commit_patches()
-                self.stats["commits"] += 1
-                self.stats["gain"] += cost_before - ls.cost
+            with span("assist.apply"):
+                cost_before = ls.cost
+                rows = np.nonzero(ks)[0]
+                for i, wide in zip(rows, self._wide(ls, rows, ids, ks, bs)):
+                    k = int(ks[i])
+                    if ls.apply_region(k, ids[i, :k], int(bs[i])):
+                        applied += 1
+                        self.stats["wide_patches"] += int(wide)
+                if applied:
+                    ls.commit_patches()
+                    self.stats["commits"] += 1
+                    self.stats["gain"] += cost_before - ls.cost
             self.stats["patches"] += applied
             self.stats["batches"] += 1
 
-        centers = self._sample_centers(ls)
+        with span("assist.sample"):
+            centers = self._sample_centers(ls)
         if len(centers):
-            ids, adj, w, ks = ls.extract_regions(centers, rmax=self.rmax)
-            if len(centers) < self.batch:  # one batch shape throughout
-                pad = self.batch - len(centers)
-                adj = np.pad(adj, ((0, pad), (0, 0)))
-                w = np.pad(w, ((0, pad), (0, 0)))
-                ids = np.pad(ids, ((0, pad), (0, 0)))
-                ks = np.pad(ks, (0, pad))
-            self.stats["regions"] += int((ks > 0).sum())
-            self._dispatch(adj, w)
+            with span("assist.extract"):
+                ids, adj, w, ks = ls.extract_regions(centers, rmax=self.rmax)
+                if len(centers) < self.batch:  # one batch shape throughout
+                    pad = self.batch - len(centers)
+                    adj = np.pad(adj, ((0, pad), (0, 0)))
+                    w = np.pad(w, ((0, pad), (0, 0)))
+                    ids = np.pad(ids, ((0, pad), (0, 0)))
+                    ks = np.pad(ks, (0, pad))
+                self.stats["regions"] += int((ks > 0).sum())
+            with span("assist.dispatch", launches=True) as sp:
+                self._dispatch(adj, w)
+            if self.device.type != "cuda":  # solved in place, on the host
+                self.stats["t_device_s"] += sp.seconds
             self._pending = (ids, ks)
-        self.stats["t_host_s"] += time.perf_counter() - t0
         return applied
 
     def stop(self):

@@ -37,6 +37,7 @@ from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
 from gnn_mwvc_tpu_torch.graphio import cover_cost
 from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.solver.checkpoint import save_checkpoint
+from gnn_mwvc_tpu_torch.utils.metrics import recording, span
 
 __all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
            "cover_uncovered_edges", "gnn_peel", "resolve_device", "solve"]
@@ -69,6 +70,10 @@ class GnnScorer:
     forward (``core.cpu_forward_native``, no ``DeviceGraph`` build), else
     through the torch forward.  The two differ by ~1e-6.  Needs
     ``compat=True``, as in JAX.
+
+    ``stats``: ``rounds`` scored and the seconds of the ``score.snapshot``
+    (``snapshot()``), ``score.upload`` (the ``DeviceGraph`` build) and
+    ``score.forward`` (the forward and its copy back) spans.
     """
 
     def __init__(self, model: Optional[MWVCModel] = None, device="cuda",
@@ -78,16 +83,39 @@ class GnnScorer:
                       else pretrained_model()).to(self.device)
         self.compat = compat
         self.native = bool(native) and compat
+        self.stats = {"rounds": 0, "t_snapshot_s": 0.0, "t_upload_s": 0.0,
+                      "t_forward_s": 0.0}
+
+    @property
+    def seconds(self) -> float:
+        """Seconds in the scorer's spans so far."""
+        return (self.stats["t_snapshot_s"] + self.stats["t_upload_s"]
+                + self.stats["t_forward_s"])
+
+    def snapshot(self, core):
+        """``core.snapshot()``, the round's input, as the scorer's span."""
+        with span("score.snapshot") as sp:
+            snap = core.snapshot()
+        self.stats["t_snapshot_s"] += sp.seconds
+        return snap
 
     def __call__(self, snap, weight_scale: float) -> np.ndarray:
         if snap.n == 0:
             return np.zeros(0, np.float32)
+        self.stats["rounds"] += 1
         if self.native and self.device.type == "cpu":
-            return cpu_forward_native(snap, self.model, weight_scale)
-        dg = DeviceGraph.build(snap.weights, snap.indptr, snap.indices,
-                               self.device)
-        return score_graph(self.model, dg, weight_scale,
-                           self.compat).cpu().numpy()
+            with span("score.forward") as fwd:
+                prob = cpu_forward_native(snap, self.model, weight_scale)
+        else:
+            with span("score.upload", launches=True) as up:
+                dg = DeviceGraph.build(snap.weights, snap.indptr,
+                                       snap.indices, self.device)
+            self.stats["t_upload_s"] += up.seconds
+            with span("score.forward", launches=True) as fwd:
+                prob = score_graph(self.model, dg, weight_scale,
+                                   self.compat).cpu().numpy()
+        self.stats["t_forward_s"] += fwd.seconds
+        return prob
 
 
 def confidence_order(prob: np.ndarray, weights: np.ndarray,
@@ -139,7 +167,9 @@ class SolveResult:
     # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, the
     # scorer's own stats under "scorer", dependent_folds (the folds the
     # core refused) and kernel_edges_uncovered, the vertices
-    # cover_uncovered_edges added (0 where nothing is left to cover)
+    # cover_uncovered_edges added (0 where nothing is left to cover);
+    # "spans": every span of the solve, phase 2's too, as
+    # {name: {"seconds", "calls"}} (utils/metrics.py)
     phase1: Optional[dict] = None
 
 
@@ -152,52 +182,54 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
     ``scorer`` is either a per-snapshot callable
     ``scorer(snapshot, weight_scale) -> prob`` or has the sticky protocol
     ``scorer.score_core(core, weight_scale) -> (ids, prob, w, deg)``.
+    Spans: ``reduce``, then per round ``components``, ``score``, ``order``
+    and ``peel``; the split's timers are their seconds.
     """
-    t0 = time.perf_counter()
-    core.reduce()
-    split = {"t_reduce0_s": time.perf_counter() - t0, "t_score_s": 0.0,
+    with span("reduce") as sp:
+        core.reduce()
+    split = {"t_reduce0_s": sp.seconds, "t_score_s": 0.0,
              "t_peel_s": 0.0, "rounds": 0}
     t_kernel = None
     kernel_size = 0
     initial_cost = 0
     sticky = hasattr(scorer, "score_core")
     while core.active_count > 0:
-        core.solve_small_components(component_limit)
+        with span("components"):
+            core.solve_small_components(component_limit)
         if t_kernel is None:
             t_kernel = core.timestamp
             kernel_size = core.active_count
             initial_cost = core.cost
         if core.active_count == 0:
             break
-        t0 = time.perf_counter()
-        if sticky:
-            ids, prob, wts, deg = scorer.score_core(core, weight_scale)
-            edges_scored = int(deg.sum())
-        else:
-            snap = core.snapshot()
-            prob = scorer(snap, weight_scale)
-            ids, wts, deg = snap.ids, snap.weights, snap.deg
-            edges_scored = int(snap.indptr[-1]) if snap.n else 0
-        t_score = time.perf_counter() - t0
-        order = confidence_order(prob, wts, deg)
-        core.reset_label_count()
+        with span("score", launches=True) as score:
+            if sticky:
+                ids, prob, wts, deg = scorer.score_core(core, weight_scale)
+            else:
+                snap = (scorer.snapshot(core)
+                        if isinstance(scorer, GnnScorer) else core.snapshot())
+                prob = scorer(snap, weight_scale)
+                ids, wts, deg = snap.ids, snap.weights, snap.deg
+        edges_scored = int(np.asarray(deg, np.int64).sum())
+        with span("order"):
+            order = confidence_order(prob, wts, deg)
+            core.reset_label_count()
         if verbose:
             print(f"Remaining nodes: {core.active_count}", end="\r",
                   flush=True)
         n_before = core.active_count
-        t0 = time.perf_counter()
-        core.peel(ids[order], prob[order].astype(np.float32),
-                  relable_interval)
-        t_peel = time.perf_counter() - t0
-        split["t_score_s"] += t_score
-        split["t_peel_s"] += t_peel
+        with span("peel") as peel:
+            core.peel(ids[order], prob[order].astype(np.float32),
+                      relable_interval)
+        split["t_score_s"] += score.seconds
+        split["t_peel_s"] += peel.seconds
         split["rounds"] += 1
         if metrics is not None:
             metrics.record_round(
                 nodes_remaining=core.active_count, edges_scored=edges_scored,
                 decisions=n_before - core.active_count,
-                label_count=core.label_count, seconds_score=t_score,
-                seconds_peel=t_peel)
+                label_count=core.label_count, seconds_score=score.seconds,
+                seconds_peel=peel.seconds)
     if t_kernel is None:
         t_kernel = core.timestamp
     if isinstance(getattr(scorer, "stats", None), dict):
@@ -247,6 +279,19 @@ def solve(
     find a new best and resets on success).  ls_ils_stall=0 gives the
     reference's plain phase-2 search.  ls_forget_after > 0 instead decays
     learned edge weights on stall.
+
+    The solve's spans (``phase1["spans"]``; none overlaps another at the
+    top level): ``relabel``, ``core_build``, then ``gnn_peel``'s,
+    ``rewind`` (the peel unfolded back to the kernel), ``handoff`` (phase
+    2's set-up: the kernel's snapshot, edge list and start cover, the
+    search, the kick bias's forward, the assist), per phase-2 batch
+    ``search``, ``kick`` and ``assist`` (``DeviceAssist.tick``), and
+    ``finish`` (the best cover back, the full unfold, the cover in the
+    input's ids).  Children, named ``<parent>.<child>``: the scorer's and
+    the assist's.  In a profile, the spans that may launch device work
+    (``score`` and the scorer's upload, refresh and torch forward,
+    ``handoff`` with the assist, ``assist`` and ``assist.dispatch``) have
+    no range (``utils/metrics.py``).
     """
     t_start = time.perf_counter()
     device = resolve_device(device)
@@ -257,146 +302,181 @@ def solve(
     g_orig = g
     perm = None
     t_cluster = 0.0
-    if reorder:
-        # clustered relabel for aggregation locality; the solution is mapped
-        # back to the input's ids at the end
-        t0 = time.perf_counter()
-        perm = cluster_order(g.indptr, g.indices)
-        g = g.reorder(perm)
-        t_cluster = time.perf_counter() - t0
+    with recording() as rec:
+        if reorder:
+            # clustered relabel for aggregation locality; the solution is
+            # mapped back to the input's ids at the end
+            with span("relabel") as sp:
+                perm = cluster_order(g.indptr, g.indices)
+                g = g.reorder(perm)
+            t_cluster = sp.seconds
 
-    weight_scale = float(g.weights.max())
-    if model is None:
-        model = getattr(scorer, "model", None)
-    if model is None:
-        model = pretrained_model()
-    if scorer is None:
-        from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
+        weight_scale = float(g.weights.max())
+        if model is None:
+            model = getattr(scorer, "model", None)
+        if model is None:
+            model = pretrained_model()
+        if scorer is None:
+            from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
 
-        scorer = StickyGnnScorer(model, device=device)
-    if isinstance(getattr(scorer, "stats", None), dict):
-        scorer.stats["t_cluster_s"] = t_cluster
+            scorer = StickyGnnScorer(model, device=device)
+        if isinstance(getattr(scorer, "stats", None), dict):
+            scorer.stats["t_cluster_s"] = t_cluster
 
-    core = CoreSolver(g.weights, g.edge_array())
-    t_kernel, kernel_size, initial_cost, split = gnn_peel(
-        core, scorer, weight_scale, relable_interval, verbose=verbose,
-        metrics=metrics)
-    core.unfold(t_kernel)  # rewind the peel; its decisions stay as the cover
-    time_gnn = time.perf_counter() - t_start
-    if verbose:
-        print(f"GNN-VC done in {time_gnn:.3f}s, cost: {core.cost}")
+        with span("core_build"):
+            core = CoreSolver(g.weights, g.edge_array())
+        t_kernel, kernel_size, initial_cost, split = gnn_peel(
+            core, scorer, weight_scale, relable_interval, verbose=verbose,
+            metrics=metrics)
+        with span("rewind"):
+            core.unfold(t_kernel)  # the peel's decisions stay as the cover
+        time_gnn = time.perf_counter() - t_start
+        if verbose:
+            print(f"GNN-VC done in {time_gnn:.3f}s, cost: {core.cost}")
 
-    def _unperm(sol):
-        if perm is None:
-            return sol
-        out = np.empty_like(sol)
-        out[perm] = sol
-        return out
+        def finish(snap=None, ls=None, assist=None):
+            """The cover of the input graph, its cost and the rule counters:
+            the search's best cover (``ls``, over ``snap``'s kernel) back
+            into the core, every reduction unfolded; the spans' totals to
+            ``phase1`` and ``metrics``."""
+            with span("finish"):
+                if assist is not None:
+                    assist.stop()
+                if ls is not None:
+                    # the best cover back (cost in kernel-state weights)
+                    core.apply_cover(snap.ids, ls.best())
+                core.unfold(0)
+                sol = core.solution()
+                if (sol < 0).any():
+                    raise RuntimeError("core left vertices undecided")
+                sol = _unpermute(sol.astype(np.int8), perm)
+            split["spans"] = rec.as_dict()
+            if metrics is not None:
+                metrics.record_spans(split["spans"])
+            return sol, core.cost, core.counters
 
-    if core.active_count == 0:
-        split["kernel_edges_uncovered"] = 0
-        core.unfold(0)
-        sol = core.solution()
-        if (sol < 0).any():
-            raise RuntimeError("core left vertices undecided")
-        return SolveResult(
-            _unperm(sol.astype(np.int8)), core.cost, core.cost, time_gnn,
-            time_gnn, time.perf_counter() - t_start, kernel_size,
-            initial_cost, core.counters, phase1=split)
+        if core.active_count == 0:
+            split["kernel_edges_uncovered"] = 0
+            sol, cost, counters = finish()
+            return SolveResult(sol, cost, cost, time_gnn, time_gnn,
+                               time.perf_counter() - t_start, kernel_size,
+                               initial_cost, counters, phase1=split)
 
-    # ---- phase 2: local search over the kernel -----------------------------
-    snap = core.snapshot()
-    rows = np.repeat(np.arange(snap.n, dtype=np.int64),
-                     np.diff(snap.indptr.astype(np.int64)))
-    keep = rows < snap.indices
-    kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
-    s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
-    # never non-zero since the core refuses folds on a dependent
-    # neighbourhood (cover_uncovered_edges): a count here is a fault
-    split["kernel_edges_uncovered"] = cover_uncovered_edges(s0, kedges,
-                                                            snap.weights)
-    ls = CoreLocalSearch(snap.weights, kedges, s0)
+        # ---- phase 2: local search over the kernel -------------------------
+        assist = None
+        kick_bias = None
+        if device_assist == "auto":
+            device_assist = device.type == "cuda"
+        assisted = device_assist and time_gnn < time_limit
+        with span("handoff", launches=assisted):
+            snap = core.snapshot()
+            rows = np.repeat(np.arange(snap.n, dtype=np.int64),
+                             np.diff(snap.indptr.astype(np.int64)))
+            keep = rows < snap.indices
+            kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
+            s0 = np.array([core.decided(u) == 1 for u in snap.ids],
+                          dtype=np.uint8)
+            # never non-zero since the core refuses folds on a dependent
+            # neighbourhood (cover_uncovered_edges): a count here is a fault
+            split["kernel_edges_uncovered"] = cover_uncovered_edges(
+                s0, kedges, snap.weights)
+            ls = CoreLocalSearch(snap.weights, kedges, s0)
+            if assisted:
+                from gnn_mwvc_tpu_torch.solver.device_assist import (
+                    DeviceAssist)
 
-    assist = None
-    kick_bias = None
-    if device_assist == "auto":
-        device_assist = device.type == "cuda"
-    if device_assist and time_gnn < time_limit:
-        from gnn_mwvc_tpu_torch.solver.device_assist import DeviceAssist
+                # kernel scores (one forward on the device) bias the kicks
+                # and the region-centre sampling; not a peel round, so not
+                # in the scorer's spans
+                dg = DeviceGraph.build(snap.weights, snap.indptr,
+                                       snap.indices, device)
+                prob = score_graph(model.to(device), dg,
+                                   weight_scale).cpu().numpy()
+                kick_bias = np.clip(1.0 - prob, 0.05, 1.0).astype(np.float32)
+                assist = DeviceAssist(prob, device=device, batch=assist_batch,
+                                      rmax=assist_rmax, seed=ls_seed)
 
-        # kernel scores (one forward on the device) bias the kicks and the
-        # region-centre sampling
-        prob = GnnScorer(model, device=device)(snap, weight_scale)
-        kick_bias = np.clip(1.0 - prob, 0.05, 1.0).astype(np.float32)
-        assist = DeviceAssist(prob, device=device, batch=assist_batch,
-                              rmax=assist_rmax, seed=ls_seed)
-
-    t2 = time.perf_counter()
-    t_best = t2
-    last_ckpt = t2
-    step_size = seed_step_size
-    stalled = 0
-    kicks = 0
-    k_cur = ls_ils_k
-    best_at_kick = 1 << 62
-    while time_gnn + (time.perf_counter() - t2) < time_limit:
-        remaining = time_limit - time_gnn - (time.perf_counter() - t2)
-        if ls.search(step_size, remaining):
-            stalled = 0
-            t_best = time.perf_counter()
-            step_size = min(step_size * 2, 1 << 16)
-            if verbose:
-                print(f"{time_gnn + (t_best - t2):.2f},"
-                      f"{ls.best_cost + initial_cost}, step size {step_size}")
-            if checkpoint_path and t_best - last_ckpt >= checkpoint_interval:
-                core.apply_cover(snap.ids, ls.best())
-                full = _unperm((core.preview_solution() == 1).astype(np.int8))
-                save_checkpoint(checkpoint_path, g_orig, full,
-                                cover_cost(g_orig, full),
-                                time_gnn + (t_best - t2))
-                last_ckpt = t_best
-        else:
-            step_size = max(step_size // 2, 1 << 10)
-            if step_size == 1 << 10:
-                stalled += 1
-                if ls_forget_after and stalled >= ls_forget_after:
-                    ls.forget(0.3)
-                    stalled = 0
-                elif ls_ils_stall and stalled >= ls_ils_stall:
-                    stalled = 0
-                    kicks += 1
-                    if ls.best_cost < best_at_kick:
-                        k_cur = ls_ils_k
-                    else:
-                        k_cur = min(k_cur * 2, 4096)
-                    best_at_kick = ls.best_cost
-                    ls.restore_best()
-                    if kick_bias is not None:
-                        ls.perturb_guided(k_cur, ls_seed + kicks, kick_bias)
-                    else:
-                        ls.perturb(k_cur, ls_seed + kicks)
-                    step_size = 1 << 16
-        if assist is not None:
-            prev_best = ls.best_cost
-            assist.tick(ls)
-            if ls.best_cost < prev_best:
+        t2 = time.perf_counter()
+        t_best = t2
+        last_ckpt = t2
+        step_size = seed_step_size
+        stalled = 0
+        kicks = 0
+        k_cur = ls_ils_k
+        best_at_kick = 1 << 62
+        while time_gnn + (time.perf_counter() - t2) < time_limit:
+            remaining = time_limit - time_gnn - (time.perf_counter() - t2)
+            with span("search"):
+                improved = ls.search(step_size, remaining)
+            if improved:
+                stalled = 0
                 t_best = time.perf_counter()
+                step_size = min(step_size * 2, 1 << 16)
                 if verbose:
                     print(f"{time_gnn + (t_best - t2):.2f},"
-                          f"{ls.best_cost + initial_cost}, device patch")
+                          f"{ls.best_cost + initial_cost}, "
+                          f"step size {step_size}")
+                if checkpoint_path and t_best - last_ckpt >= \
+                        checkpoint_interval:
+                    core.apply_cover(snap.ids, ls.best())
+                    full = _unpermute(
+                        (core.preview_solution() == 1).astype(np.int8), perm)
+                    save_checkpoint(checkpoint_path, g_orig, full,
+                                    cover_cost(g_orig, full),
+                                    time_gnn + (t_best - t2))
+                    last_ckpt = t_best
+            else:
+                step_size = max(step_size // 2, 1 << 10)
+                if step_size == 1 << 10:
+                    stalled += 1
+                    if ls_forget_after and stalled >= ls_forget_after:
+                        ls.forget(0.3)
+                        stalled = 0
+                    elif ls_ils_stall and stalled >= ls_ils_stall:
+                        stalled = 0
+                        kicks += 1
+                        if ls.best_cost < best_at_kick:
+                            k_cur = ls_ils_k
+                        else:
+                            k_cur = min(k_cur * 2, 4096)
+                        best_at_kick = ls.best_cost
+                        _kick(ls, k_cur, ls_seed + kicks, kick_bias)
+                        step_size = 1 << 16
+            if assist is not None:
+                prev_best = ls.best_cost
+                assist.tick(ls)
+                if ls.best_cost < prev_best:
+                    t_best = time.perf_counter()
+                    if verbose:
+                        print(f"{time_gnn + (t_best - t2):.2f},"
+                              f"{ls.best_cost + initial_cost}, device patch")
 
-    if assist is not None:
-        assist.stop()
-    # the best cover back into the core (cost in kernel-state weights)
-    core.apply_cover(snap.ids, ls.best())
-    core.unfold(0)
-    sol = core.solution()
-    if (sol < 0).any():
-        raise RuntimeError("core left vertices undecided")
-    return SolveResult(
-        _unperm(sol.astype(np.int8)), core.cost,
-        min(ls.best_seen + initial_cost, core.cost), time_gnn + (t_best - t2),
-        time_gnn, time.perf_counter() - t_start, kernel_size, initial_cost,
-        core.counters, ls_steps=ls.steps,
-        assist_stats=dict(assist.stats) if assist is not None else None,
-        phase1=split)
+        best_seen, steps = ls.best_seen, ls.steps
+        sol, cost, counters = finish(snap, ls, assist)
+        return SolveResult(
+            sol, cost, min(best_seen + initial_cost, cost),
+            time_gnn + (t_best - t2), time_gnn, time.perf_counter() - t_start,
+            kernel_size, initial_cost, counters, ls_steps=steps,
+            assist_stats=dict(assist.stats) if assist is not None else None,
+            phase1=split)
+
+
+def _unpermute(sol: np.ndarray, perm) -> np.ndarray:
+    """``sol`` over relabelled ids back in the input's ids (``perm`` None:
+    not relabelled)."""
+    if perm is None:
+        return sol
+    out = np.empty_like(sol)
+    out[perm] = sol
+    return out
+
+
+def _kick(ls, k: int, seed: int, bias):
+    """The ILS kick: restore the best cover and perturb ``k`` vertices of
+    it, guided by ``bias`` where the assist scored the kernel."""
+    with span("kick"):
+        ls.restore_best()
+        if bias is not None:
+            ls.perturb_guided(k, seed, bias)
+        else:
+            ls.perturb(k, seed)

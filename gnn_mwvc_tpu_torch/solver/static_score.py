@@ -41,6 +41,7 @@ import torch
 from gnn_mwvc_tpu_torch.graph import DeviceGraph
 from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model
 from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer
+from gnn_mwvc_tpu_torch.utils.metrics import span
 
 __all__ = ["StickyGnnScorer"]
 
@@ -151,32 +152,35 @@ class StickyGnnScorer:
     def _score_snapshot(self, core, weight_scale: float):
         """One forward over the compacted snapshot: on the scorer's card,
         or on the host; the sticky state is dropped (rebuilt if a later
-        round is sticky again)."""
-        t0 = time.perf_counter()
+        round is sticky again).  ``GnnScorer``'s spans time it."""
         self._state = self._live = self._prev = None
         if self._snapshot_scorer is None:
             self._snapshot_scorer = GnnScorer(
                 self.model, self.device, self.compat,
                 native=self.native_snapshots)
-        snap = core.snapshot()
-        prob = self._snapshot_scorer(snap, weight_scale)
+        inner = self._snapshot_scorer
+        before = inner.seconds
+        snap = inner.snapshot(core)
+        prob = inner(snap, weight_scale)
         self.stats["legacy_rounds"] += 1
-        self.stats["seconds_legacy"] += time.perf_counter() - t0
+        self.stats["seconds_legacy"] += inner.seconds - before
         return snap.ids, prob, snap.weights, snap.deg
 
     @torch.no_grad()
     def score_core(self, core, weight_scale: float):
+        """Spans: ``score.refresh`` (a rebuild where due, then the live
+        state's upload) and ``score.forward`` (the masked forward and its
+        copy back); a per-snapshot round has ``GnnScorer``'s."""
         if self._per_snapshot(core):
             return self._score_snapshot(core, weight_scale)
+        with span("score.refresh", launches=True) as refresh:
+            if self._needs_rebuild(core):
+                self._rebuild(core)
+            self._refresh(core)
+        with span("score.forward", launches=True) as fwd:
+            prob = self._forward(weight_scale)
         t0 = time.perf_counter()
-        if self._needs_rebuild(core):
-            self._rebuild(core)
         _dg, ids, built_size, _ba = self._state
-        self._refresh(core)
-        t1 = time.perf_counter()
-        prob = self._forward(weight_scale)
-        t2 = time.perf_counter()
-
         w_r, _nw_r, deg_r, act8 = self._prev
         rows = np.nonzero(act8)[0]
         out_ids = ids[rows]
@@ -196,6 +200,7 @@ class StickyGnnScorer:
                 out_w = np.concatenate([out_w, w_g[rows_g]])
                 out_deg = np.concatenate([out_deg, deg_g[rows_g]])
         self.stats["rounds"] += 1
-        self.stats["seconds_prep"] += (t1 - t0) + (time.perf_counter() - t2)
-        self.stats["seconds_device"] += t2 - t1
+        self.stats["seconds_prep"] += refresh.seconds + (
+            time.perf_counter() - t0)
+        self.stats["seconds_device"] += fwd.seconds
         return out_ids, out_prob, out_w, out_deg

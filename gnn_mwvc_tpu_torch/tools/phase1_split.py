@@ -11,7 +11,8 @@ phase-2 budget at 0 and no assist:
   * ``gnn-vc-torch g.metis out.sol 0 -1 0 --json`` (the CLI's scorer);
 
 and prints one JSON line each: phase-1 seconds (``time_gnn``), reduce /
-score / peel seconds and the rest outside those timers, rounds, the
+score / peel seconds, the solve's spans (``phase1["spans"]``, every piece
+of the solve timed by name; null where the checkout has none), rounds, the
 scorer's sticky and per-snapshot rounds where it has them, the kernel edges
 the peel left open and the folds the core refused (where the checkout
 counts them), the cover's cost and the kernel launches (or the CLI's
@@ -51,10 +52,9 @@ solve(build_road_graph(40), time_limit=0.0, device=device, device_assist=False)
 
 def record(surface, p1, t_gnn, cost, launches):
     sc = p1.get("scorer") or {}
-    rest = t_gnn - p1["t_reduce0_s"] - p1["t_score_s"] - p1["t_peel_s"]
     return {"repo": repo, "surface": surface, "t_phase1_s": t_gnn,
             "t_reduce_s": p1["t_reduce0_s"], "t_score_s": p1["t_score_s"],
-            "t_peel_s": p1["t_peel_s"], "t_outside_s": rest,
+            "t_peel_s": p1["t_peel_s"], "spans": p1.get("spans"),
             "rounds": p1["rounds"], "sticky_rounds": sc.get("rounds"),
             "legacy_rounds": sc.get("legacy_rounds"),
             "seconds_legacy": sc.get("seconds_legacy"),

@@ -1,0 +1,16 @@
+"""handoff_s: the program's ``handoff`` span (phase 2's set-up after phase 1:
+the kernel's snapshot and edge list, the start cover's per-vertex read,
+``CoreLocalSearch(...)``, and where the assist runs its kernel forward
+and ``DeviceAssist(...)``), seconds, mean per solve; in the phase-1 cell,
+where it runs though no search follows."""
+
+
+def _seconds(solve, name):
+    return solve["phase1"]["spans"].get(name, {}).get("seconds", 0.0)
+
+
+def read(ctx):
+    solves = ctx["counters"]["solves"]
+    if not solves or any("spans" not in s["phase1"] for s in solves):
+        return None
+    return sum(_seconds(s, "handoff") for s in solves) / len(solves)

@@ -1,0 +1,13 @@
+"""order_s: the program's ``order`` span (each round's
+``confidence_order`` and label-count reset), seconds, mean per solve."""
+
+
+def _seconds(solve, name):
+    return solve["phase1"]["spans"].get(name, {}).get("seconds", 0.0)
+
+
+def read(ctx):
+    solves = ctx["counters"]["solves"]
+    if not solves or any("spans" not in s["phase1"] for s in solves):
+        return None
+    return sum(_seconds(s, "order") for s in solves) / len(solves)

@@ -163,7 +163,10 @@ def test_cli_scores_with_gnn_scorer_as_gnn_vc(tmp_path, monkeypatch, capsys):
     (scorer,) = seen
     assert type(scorer) is pipeline.GnnScorer
     assert scorer.device.type == "cpu"
-    assert rec["phase1"]["rounds"] >= 2 and "scorer" not in rec["phase1"]
+    # GnnScorer's own stats: every round scored per snapshot, no sticky ones
+    sc = rec["phase1"]["scorer"]
+    assert rec["phase1"]["rounds"] >= 2 and sc["rounds"] == \
+        rec["phase1"]["rounds"] and "legacy_rounds" not in sc
     assert jax_main([path, ref, "0", "-1", "0"]) == 0
     np.testing.assert_array_equal(read_solution(ours), read_solution(ref))
 

@@ -242,15 +242,15 @@ def test_solve_without_checkpoint_path_writes_nothing(tmp_path, monkeypatch):
 # -- metrics ------------------------------------------------------------------
 
 def test_metrics_utils_and_solve_metrics(tmp_path):
-    from gnn_mwvc_tpu_torch.utils import PhaseTimer, SolveMetrics, trace_span
+    from gnn_mwvc_tpu_torch.utils import SolveMetrics, recording, span
 
-    t = PhaseTimer()
-    for _ in range(2):
-        with t.span("a"):
-            pass
-    assert t.as_dict()["a"]["calls"] == 2
-    with trace_span("x"), trace_span("y", enabled=False):
+    with recording() as rec:
+        for _ in range(2):
+            with span("a"):
+                pass
+    with span("x"):  # no recorder: a profiler annotation only
         pass
+    assert rec.as_dict()["a"]["calls"] == 2 and "x" not in rec.as_dict()
 
     sink = str(tmp_path / "m.jsonl")
     m = SolveMetrics(sink=sink)
@@ -262,8 +262,14 @@ def test_metrics_utils_and_solve_metrics(tmp_path):
     assert out["scorer"]["rounds"] + out["scorer"]["legacy_rounds"] == \
         res.phase1["rounds"]
     assert sum(r["decisions"] for r in out["rounds"]) > 0
+    # the solve's spans, each round's score and peel among them
+    assert out["phases"] and out["phases"] == res.phase1["spans"]
+    assert out["phases"]["peel"]["calls"] == res.phase1["rounds"]
+    assert sum(r["seconds_peel"] for r in out["rounds"]) == pytest.approx(
+        out["phases"]["peel"]["seconds"])
     with open(sink) as f:
-        assert json.loads(f.readline())["cost"] == res.cost
+        line = json.loads(f.readline())
+    assert line["cost"] == res.cost and line["phases"] == out["phases"]
 
 
 # -- mwvc-tools ---------------------------------------------------------------
