@@ -9,7 +9,9 @@ JAX copy holds 16.  In ``revgraph.hpp`` and ``solver.hpp``, the
 independent-neighbourhood fold is made only when an order-free check agrees
 that N(u) is independent (a fold gadget's adjacency list is not sorted, and
 the JAX copy's sorted merge can pass a dependent N(u)); the refused folds
-are counted (``CoreSolver.dependent_folds``).  g++ compiles
+are counted (``CoreSolver.dependent_folds``).  One entry is the port's
+alone: ``capi.cpp``'s ``mwvc_ls_apply_regions`` applies a whole region
+batch in one call (``CoreLocalSearch.apply_regions``).  g++ compiles
 ``core/src/capi.cpp`` (with the headers beside it) into
 ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
 ``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
@@ -123,6 +125,8 @@ _SIGNATURES = {
                                  ct.c_uint32, u32p, i32p, i32p, u8p],
                                 ct.c_uint32),
     "mwvc_ls_apply_region": ([_c, ct.c_uint32, u32p, ct.c_uint32], ct.c_int),
+    "mwvc_ls_apply_regions": ([_c, ct.c_uint32, ct.c_uint32, u32p, u8p, i32p,
+                               ct.POINTER(ct.c_uint32)], ct.c_uint32),
     "mwvc_ls_commit_patches": ([_c], ct.c_int),
     "mwvc_ls_get_dscores": ([_c, u32p], None),
     "mwvc_ls_rebuild_scores": ([_c], None),
@@ -473,6 +477,28 @@ class CoreLocalSearch:
         ids = np.ascontiguousarray(ids, dtype=np.uint32)
         return bool(self._lib.mwvc_ls_apply_region(
             self._h, int(k), ids, int(new_mask)))
+
+    def apply_regions(self, ids, ks, masks):
+        """``apply_region`` over a whole batch in one native call: row i of
+        ``ids`` (B, W) u32 and ``ks`` (B,) u8, as ``extract_regions``
+        returns them, with ``masks[i]`` of the solver's (B,) int32 answer;
+        rows in order, rows with k == 0 skipped.  Returns (applied, wide):
+        the patches applied, and how many of them flipped more than 16
+        vertices of the live cover.  Call commit_patches() after."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint32)
+        ks = np.ascontiguousarray(ks, dtype=np.uint8)
+        masks = np.ascontiguousarray(masks, dtype=np.int32)
+        if ids.ndim != 2 or not ks.shape == masks.shape == ids.shape[:1]:
+            raise ValueError(f"ids (B, W), ks (B,) and masks (B,) expected, "
+                             f"got {ids.shape}, {ks.shape}, {masks.shape}")
+        b, stride = ids.shape
+        if b and (int(ks.max()) > stride or int(ids.max()) >= self.n):
+            raise ValueError("a region size over the row width, or a vertex "
+                             "id out of range")
+        wide = ct.c_uint32(0)
+        applied = self._lib.mwvc_ls_apply_regions(
+            self._h, b, stride, ids, ks, masks, ct.byref(wide))
+        return int(applied), int(wide.value)
 
     def commit_patches(self):
         """Snapshot the best cover after a batch of patches; True if the

@@ -444,6 +444,40 @@ int mwvc_ls_apply_region(void *h, u32 k, const u32 *ids, u32 new_mask) {
     return ((LocalSearch *)h)->apply_region(k, ids, new_mask);
 }
 
+// A finished region batch applied in one call: rows 0..b-1 of the
+// (b, stride) ids and the (b,) sizes as mwvc_ls_extract_regions wrote them,
+// with the solver's (b,) masks, in row order through apply_region; rows
+// with k = 0 are skipped.  Returns the patches applied; *out_wide counts
+// those that flipped more than 16 vertices of the live cover (the most a
+// 16-entry buffer of flipped vertices, the JAX package's copy of
+// apply_region, could hold).  The flips are read just before each apply;
+// the regions of a batch are disjoint, so a read before the whole batch
+// gives the same count.
+u32 mwvc_ls_apply_regions(void *h, u32 b, u32 stride, const u32 *ids,
+                          const uint8_t *ks, const int32_t *masks,
+                          u32 *out_wide) {
+    auto *ls = (LocalSearch *)h;
+    u32 applied = 0, wide = 0;
+    for (u32 i = 0; i < b; ++i) {
+        u32 k = ks[i];
+        if (k == 0)
+            continue;
+        const u32 *row = ids + (u64)i * stride;
+        u32 mask = (u32)masks[i];
+        u32 flips = 0;
+        if (k > 16 && k <= 32)
+            for (u32 t = 0; t < k; ++t)
+                flips += (ls->in_s[row[t]] != 0) != (((mask >> t) & 1) != 0);
+        if (ls->apply_region(k, row, mask)) {
+            applied++;
+            if (flips > 16)
+                wide++;
+        }
+    }
+    *out_wide = wide;
+    return applied;
+}
+
 int mwvc_ls_commit_patches(void *h) {
     return ((LocalSearch *)h)->commit_patches() ? 1 : 0;
 }

@@ -7,9 +7,10 @@ model misfit (``CoreLocalSearch.extract_regions``: intra-region edges must be
 covered; a region vertex with an outside non-cover neighbour is forced in
 through a self-loop bit).  Kernel K4 (``ops/smallsolve_mitm.py``) solves a
 batch exactly, and strictly improving assignments are re-validated against
-the live cover and patched back (``apply_region`` + ``commit_patches``
-of the port's copy of the core, ``core/src/localsearch.hpp``, which takes a
-patch that flips any number of a region's up to 20 vertices).
+the live cover and patched back, the whole batch in one native call
+(``apply_regions`` + ``commit_patches`` of the port's copy of the core;
+``core/src/localsearch.hpp``'s ``apply_region`` takes a patch that flips any
+number of a region's up to 20 vertices).
 
 On CUDA one batch is in flight at a time, all on a dedicated stream: upload
 from pinned host buffers, K4, copy back into pinned buffers, record an event.
@@ -21,8 +22,8 @@ raises; nothing falls back to another path.
 Each ``tick()`` is the span ``assist`` (``stats["t_host_s"]`` sums its
 seconds) with four children: ``assist.sample`` (centre sampling and, every
 ``pool_mult`` batches, the pool's refill), ``assist.extract``
-(``extract_regions`` and the padding), ``assist.apply`` (the
-``apply_region`` loop with ``_wide`` and ``commit_patches``) and
+(``extract_regions`` and the padding), ``assist.apply`` (one
+``apply_regions`` call and ``commit_patches``) and
 ``assist.dispatch`` (the poll of the batch in flight and the next batch's
 start; on the CPU the whole solve, ``stats["t_device_s"]`` there).
 ``assist`` and ``assist.dispatch`` may launch device work and open no
@@ -38,11 +39,6 @@ from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
 from gnn_mwvc_tpu_torch.utils.metrics import span
 
 __all__ = ["DeviceAssist"]
-
-# ``stats["wide_patches"]`` counts the applied patches that flip more than
-# this many vertices: the ones a 16-entry buffer of flipped vertices (the JAX
-# package's copy of the core) could not hold.
-WIDE_FLIPS = 16
 
 
 class DeviceAssist:
@@ -67,6 +63,9 @@ class DeviceAssist:
         self._pool_pos = 0
         self._pending = None  # (ids, ks) of the batch in flight
         self._result = None   # (best_cost, best_set) host arrays once ready
+        # wide_patches: the applied patches that flip more than 16
+        # vertices, which a 16-entry buffer of flipped vertices (the JAX
+        # package's copy of the core) could not hold
         self.stats = {"batches": 0, "regions": 0, "patches": 0, "gain": 0,
                       "commits": 0, "wide_patches": 0, "t_host_s": 0.0,
                       "t_device_s": 0.0}
@@ -120,18 +119,6 @@ class DeviceAssist:
         self._pool_pos += self.batch
         return c
 
-    def _wide(self, ls, rows, ids, ks, bs):
-        """Whether each region of ``rows`` has an assignment that flips more
-        than WIDE_FLIPS vertices of the live cover.  The regions are
-        disjoint, so one read of the cover serves the whole batch."""
-        if self.width <= WIDE_FLIPS or not len(rows):
-            return np.zeros(len(rows), bool)
-        j = np.arange(self.width)
-        inside = j < ks[rows, None]
-        new = (((bs[rows, None] >> j) & 1) == 1) & inside
-        now = ls.current()[ids[rows]].astype(bool) & inside
-        return (new != now).sum(1) > WIDE_FLIPS
-
     # -- batch lifecycle ---------------------------------------------------
     def _dispatch(self, adj: np.ndarray, w: np.ndarray):
         """Start solving one (batch, width) region batch."""
@@ -182,12 +169,8 @@ class DeviceAssist:
             _bc, bs = self._result
             with span("assist.apply"):
                 cost_before = ls.cost
-                rows = np.nonzero(ks)[0]
-                for i, wide in zip(rows, self._wide(ls, rows, ids, ks, bs)):
-                    k = int(ks[i])
-                    if ls.apply_region(k, ids[i, :k], int(bs[i])):
-                        applied += 1
-                        self.stats["wide_patches"] += int(wide)
+                applied, wide = ls.apply_regions(ids, ks, bs)
+                self.stats["wide_patches"] += wide
                 if applied:
                     ls.commit_patches()
                     self.stats["commits"] += 1

@@ -8,7 +8,8 @@ import torch
 
 from gnn_mwvc_tpu_torch.core import CoreLocalSearch
 from gnn_mwvc_tpu_torch.ops.smallsolve import batched_small_mwvc
-from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import small_mwvc_mitm
+from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import (small_mwvc_mitm,
+                                                    small_mwvc_mitm_plain)
 from gnn_mwvc_tpu_torch.solver.device_assist import DeviceAssist
 from tests.conftest import random_graph
 
@@ -188,3 +189,171 @@ def test_extract_regions_width20():
     cur = ls.current().astype(bool)
     e = g.edge_array()
     assert (cur[e[:, 0]] | cur[e[:, 1]]).all()
+
+
+# ``apply_regions`` (one native call a batch) against the per-region loop
+# of ``apply_region`` calls that the assist made before it.
+
+def _loop_apply(ls, ids, ks, masks):
+    """One ``apply_region`` call per non-empty row, in row order; a row
+    counts as wide when its patch flips more than 16 vertices of the cover
+    read before the loop.  Returns (applied rows, wide count)."""
+    cur = ls.current()
+    rows, wide = [], 0
+    for i in np.nonzero(ks)[0]:
+        k = int(ks[i])
+        new = (int(masks[i]) >> np.arange(k)) & 1
+        flips = int((cur[ids[i, :k]] != new).sum())
+        if ls.apply_region(k, ids[i, :k], int(masks[i])):
+            rows.append(int(i))
+            wide += flips > 16
+    return rows, wide
+
+
+def _rows_taken(before, after, ids, ks, masks):
+    """The non-empty rows whose mask the cover holds after and not before:
+    the rows applied, since a row equal to the cover cannot improve it."""
+    rows = []
+    for i in np.nonzero(ks)[0]:
+        k = int(ks[i])
+        new = (int(masks[i]) >> np.arange(k)) & 1
+        region = ids[i, :k]
+        if (after[region] == new).all() and (before[region] != new).any():
+            rows.append(int(i))
+    return rows
+
+
+def _assert_same_state(a, b):
+    assert a.cost == b.cost and a.steps == b.steps
+    np.testing.assert_array_equal(a.current(), b.current())
+    np.testing.assert_array_equal(a.dscores(), b.dscores())
+    assert a.best_cost == b.best_cost
+    np.testing.assert_array_equal(a.best(), b.best())
+
+
+@pytest.mark.parametrize("rmax", [14, 20])
+def test_apply_regions_equals_the_apply_region_loop(rmax):
+    """The same extracted batches (K4's plain version answering), applied
+    through a loop of ``apply_region`` and through ``apply_regions``, take
+    the same rows and leave the same cover, cost, dscores, best cover, and
+    the same search after them."""
+    g = random_graph(800, 6, seed=21, wmax=100)
+    e = g.edge_array()
+    a = CoreLocalSearch(g.weights, e, np.ones(g.n, np.uint8))   # the loop
+    b = CoreLocalSearch(g.weights, e, np.ones(g.n, np.uint8))   # one call
+    rng = np.random.default_rng(rmax)
+    applied_in_all = 0
+    for _ in range(6):
+        # centres drawn with repeats and close together: later ones are
+        # claimed by earlier regions, so the batch has empty rows
+        centers = rng.integers(0, g.n, size=64).astype(np.uint32)
+        ids, adj, w, ks = a.extract_regions(centers, rmax=rmax)
+        for x, y in zip((ids, adj, w, ks), b.extract_regions(centers, rmax)):
+            np.testing.assert_array_equal(x, y)
+        assert (ks == 0).any() and (ks > 0).any()
+        _bc, bs = small_mwvc_mitm_plain(torch.from_numpy(adj),
+                                        torch.from_numpy(w))
+        masks = bs.numpy()
+        before = b.current()
+        rows, wide = _loop_apply(a, ids, ks, masks)
+        assert b.apply_regions(ids, ks, masks) == (len(rows), wide)
+        assert _rows_taken(before, b.current(), ids, ks, masks) == rows
+        if rows:
+            assert a.commit_patches() == b.commit_patches()
+        _assert_same_state(a, b)
+        applied_in_all += len(rows)
+        a.search(300, 60.0)
+        b.search(300, 60.0)
+        _assert_same_state(a, b)
+    assert applied_in_all >= 1
+    inc = b.dscores().copy()
+    b.rebuild_scores()
+    np.testing.assert_array_equal(inc, b.dscores())
+
+
+def _three_stars():
+    """Star A: centre 0 and 19 leaves, the leaves in the cover; stars B
+    (centre 20) and C (centre 30): 9 leaves each, every vertex in the
+    starting cover (the local search drops their centres, which cover no
+    edge alone).  Centres weigh 1, leaves 100."""
+    w = np.full(40, 100, np.uint32)
+    w[[0, 20, 30]] = 1
+    edges = np.array([[c, c + i] for c, k in ((0, 20), (20, 10), (30, 10))
+                      for i in range(1, k)], np.uint32)
+    s0 = np.ones(40, np.uint8)
+    s0[0] = 0
+    return w, edges, s0
+
+
+def test_apply_regions_rejects_an_uncovering_row_and_counts_a_wide_one():
+    """Row 0 (star A, its centre alone) flips all 20 vertices: applied and
+    counted wide.  Row 1 is empty, with a mask that is never read.  Row 2
+    (star B, nothing in the cover) would uncover its edges: rejected.  Row
+    3 (star C, its centre alone) flips 10: applied, not wide."""
+    w, edges, s0 = _three_stars()
+    ids = np.zeros((4, 20), np.uint32)
+    ids[0] = np.arange(20)
+    ids[2, :10] = np.arange(20, 30)
+    ids[3, :10] = np.arange(30, 40)
+    ks = np.array([20, 0, 10, 10], np.uint8)
+    masks = np.array([1, -1, 0, 1], np.int32)
+    a = CoreLocalSearch(w, edges, s0)
+    b = CoreLocalSearch(w, edges, s0)
+    cost0 = b.cost
+    assert _loop_apply(a, ids, ks, masks) == ([0, 3], 1)
+    assert b.apply_regions(ids, ks, masks) == (2, 1)
+    assert cost0 - b.cost == 19 * 100 - 1 + 9 * 100 - 1
+    assert a.commit_patches() and b.commit_patches()
+    _assert_same_state(a, b)
+    cur = b.current().astype(bool)
+    assert (cur[edges[:, 0]] | cur[edges[:, 1]]).all()
+    assert cur[[0, 30]].all() and cur[21:30].all()
+    assert not cur[1:21].any() and not cur[31:].any()
+    inc = b.dscores().copy()
+    b.rebuild_scores()
+    np.testing.assert_array_equal(inc, b.dscores())
+
+
+class _LoopApply:
+    """A local search whose ``apply_regions`` is the reference loop."""
+
+    def __init__(self, ls):
+        self.ls = ls
+
+    def __getattr__(self, name):
+        return getattr(self.ls, name)
+
+    def apply_regions(self, ids, ks, masks):
+        rows, wide = _loop_apply(self.ls, ids, ks, masks)
+        return len(rows), wide
+
+
+def test_assist_stats_equal_the_reference_loop():
+    """The assist at a fixed seed, then between search batches as in phase
+    2, with ``apply_regions`` and with the reference loop: the same patches,
+    gain, commits and wide patches, and the same search state.  The stars'
+    vertices are the misfits, so the first batches take them in whole and
+    patch star A wide."""
+    g = random_graph(500, 6, seed=15, wmax=100)
+    w3, e3, _s0 = _three_stars()
+    w = np.concatenate([g.weights, w3]).astype(np.uint32)
+    edges = np.concatenate([g.edge_array(), e3 + g.n]).astype(np.uint32)
+    prob = np.full(len(w), 0.99, np.float32)
+    prob[g.n:] = 0.0
+    runs = []
+    for wrap in (lambda ls: ls, _LoopApply):
+        core = CoreLocalSearch(w, edges, np.ones(len(w), np.uint8))
+        ls = wrap(core)
+        assist = DeviceAssist(prob, device="cpu", batch=16, rmax=20, seed=3,
+                              pool_mult=2)
+        for i in range(10):
+            assist.tick(ls)
+            if i >= 2:
+                ls.search(200, 60.0)
+        assist.stop()
+        runs.append((core, {k: v for k, v in assist.stats.items()
+                            if not k.startswith("t_")}))
+    (a, stats_a), (b, stats_b) = runs
+    assert stats_a == stats_b
+    assert stats_a["patches"] >= 1 and stats_a["wide_patches"] >= 1
+    _assert_same_state(a, b)

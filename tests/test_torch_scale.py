@@ -101,7 +101,8 @@ def test_watch_samples_memory_and_passes_the_exit_code(code, tmp_path,
 
 class FlipsSpy:
     """A local search that records, for every patch offered to the core's
-    ``apply_region``, how many vertices of the live cover it would flip."""
+    ``apply_regions`` (row by row, empty rows left out), how many vertices
+    of the live cover it would flip."""
 
     def __init__(self, ls):
         self.ls, self.flips = ls, []
@@ -109,11 +110,15 @@ class FlipsSpy:
     def __getattr__(self, name):
         return getattr(self.ls, name)
 
-    def apply_region(self, k, ids, new_mask):
-        now = self.ls.current()[np.asarray(ids[:k], np.int64)]
-        new = (int(new_mask) >> np.arange(k)) & 1
-        self.flips.append(int((now != new).sum()))
-        return self.ls.apply_region(k, ids, new_mask)
+    def apply_regions(self, ids, ks, masks):
+        cur = self.ls.current()
+        for row, k, mask in zip(ids, ks, masks):
+            k = int(k)
+            if k:
+                now = cur[np.asarray(row[:k], np.int64)]
+                new = (int(mask) >> np.arange(k)) & 1
+                self.flips.append(int((now != new).sum()))
+        return self.ls.apply_regions(ids, ks, masks)
 
 
 def stars(*sizes):

@@ -26,8 +26,10 @@ JAX_PKG = os.path.join(REPO, "gnn_mwvc_tpu")
 # The port's copy of the core differs from the JAX package's by two
 # repairs: apply_region's buffer of flipped vertices (localsearch.hpp), and
 # the independent-neighbourhood fold refused on a dependent neighbourhood
-# (revgraph.hpp, solver.hpp, capi.cpp).  Per file, each entry is the JAX
-# copy's text and the first and last lines of the port's text in its place.
+# (revgraph.hpp, solver.hpp, capi.cpp); and by one addition, the entry that
+# applies a whole region batch in one call (capi.cpp).  Per file, each entry
+# is the JAX copy's text and the first and last lines of the port's text in
+# its place.
 REPAIRS = {
     "localsearch.hpp": [
         ("", "    //\n    // This copy differs", "before anything is written.\n"),
@@ -65,6 +67,8 @@ REPAIRS = {
     "capi.cpp": [
         ("", "\n// Folds on a dependent neighbourhood",
          ": g.has_independent_neighbors(u);\n}\n"),
+        ("", "\n// A finished region batch applied in one call",
+         "    *out_wide = wide;\n    return applied;\n}\n"),
     ],
 }
 
@@ -147,8 +151,8 @@ def test_weights_file_equals_the_jax_package_copy():
 @pytest.mark.parametrize("name", api._SOURCES)
 def test_core_sources_equal_the_jax_package_copy(name):
     """Every source the core is built from is the JAX package's, byte for
-    byte, but for the two repairs of ``REPAIRS``: with each repair's text
-    put back to the JAX copy's, the file is the JAX copy."""
+    byte, but for the two repairs and the one addition of ``REPAIRS``: with
+    each entry's text put back to the JAX copy's, the file is the JAX copy."""
     assert api.SRC_DIR == os.path.join(PORT, "core", "src")
     assert sorted(os.listdir(api.SRC_DIR)) == sorted(api._SOURCES)
     with open(os.path.join(api.SRC_DIR, name)) as f:
