@@ -18,8 +18,9 @@ import torch
 
 from gnn_mwvc_tpu_torch.core import relabel_csr
 
-__all__ = ["Graph", "DeviceGraph", "build_road_graph", "neighbour_weight_sum",
-           "powerlaw_graph", "random_graph", "reorder_plain"]
+__all__ = ["Graph", "DeviceGraph", "build_road_graph", "geometric_graph",
+           "neighbour_weight_sum", "powerlaw_graph", "random_graph",
+           "reorder_plain"]
 
 
 def neighbour_weight_sum(weights_f32: np.ndarray, rows: np.ndarray,
@@ -241,3 +242,66 @@ def powerlaw_graph(n: int, m_attach: int, seed: int,
     e = np.unique(np.sort(np.array(edges), axis=1), axis=0)
     e = e[e[:, 0] != e[:, 1]]
     return Graph(rng.integers(1, wmax + 1, size=n), e)
+
+
+def geometric_graph(n: int, seed: int = 42, radius_factor: float = 0.55,
+                    wmin: int = 1, wmax: int = 200) -> Graph:
+    """Random geometric graph of the 10th DIMACS Implementation Challenge
+    (``rgg_n_2_X_s0``, generator by Holtgrewe, Sanders and Schulz): n points
+    uniform in the unit square, an edge between two points closer than
+    ``radius_factor * sqrt(ln n / n)``.  Weights uniform integers in
+    [wmin, wmax], the convention of the MWIS/MWVC literature for unweighted
+    benchmark graphs (Lamm et al., ALENEX 2019).
+
+    The points come first from ``np.random.default_rng(seed)``, then the
+    weights.  Vertex ids stay in the order the points were drawn: no
+    spatial sort, so a vertex's neighbours lie anywhere in the id range.
+    The close pairs are found by bucketing the points into square cells of
+    side at least r and comparing each cell with its neighbouring cells."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    w = rng.integers(wmin, wmax + 1, size=n)
+    r = radius_factor * np.sqrt(np.log(n) / n) if n > 1 else 0.0
+    lo, hi = _close_pairs(pts, r)
+    key = np.sort(np.concatenate([lo * n + hi, hi * n + lo]))
+    rows, cols = key // n, key % n
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return Graph.from_csr(w, indptr, cols)
+
+
+def _close_pairs(pts: np.ndarray, r: float):
+    """(lo, hi) int64: every pair i < j of points with squared distance
+    under r^2, each once."""
+    n = len(pts)
+    if n < 2 or r <= 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    side = max(1, int(1.0 / r))  # cells per side: a cell's side is >= r
+    cx = np.minimum((pts[:, 0] * side).astype(np.int64), side - 1)
+    cy = np.minimum((pts[:, 1] * side).astype(np.int64), side - 1)
+    order = np.argsort(cx * side + cy, kind="stable")
+    cx, cy = cx[order], cy[order]
+    start = np.zeros(side * side + 1, dtype=np.int64)
+    np.cumsum(np.bincount(cx * side + cy, minlength=side * side),
+              out=start[1:])
+    pos = np.arange(n, dtype=np.int64)
+    los, his = [], []
+    # a cell with itself (later points only) and with four of its eight
+    # neighbours: every neighbouring pair of cells comes once
+    for dx, dy in ((0, 0), (1, -1), (1, 0), (1, 1), (0, 1)):
+        nx, ny = cx + dx, cy + dy
+        ok = (nx >= 0) & (nx < side) & (ny >= 0) & (ny < side)
+        cell = nx[ok] * side + ny[ok]
+        first = pos[ok] + 1 if (dx, dy) == (0, 0) else start[cell]
+        count = start[cell + 1] - first
+        src = np.repeat(pos[ok], count)
+        within = np.arange(len(src)) - np.repeat(np.cumsum(count) - count,
+                                                 count)
+        dst = np.repeat(first, count) + within
+        a, b = order[src], order[dst]
+        d = pts[a] - pts[b]
+        close = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] < r * r
+        a, b = a[close], b[close]
+        los.append(np.minimum(a, b))
+        his.append(np.maximum(a, b))
+    return np.concatenate(los), np.concatenate(his)

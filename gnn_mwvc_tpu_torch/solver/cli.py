@@ -19,6 +19,11 @@ card, unlike a tool's ``--device cuda:0``, which puts every shard there
 (``parallel.place_mesh``), and another card is refused.  Without either,
 phase 1 scores each round's snapshot with ``GnnScorer`` on ``--device``, as
 ``gnn-vc`` does.
+
+``--json`` prints one object: the result, ``phase1`` (the solve's split and
+spans) and ``cli_spans``, the command line's own spans as ``{name:
+{"seconds", "calls"}}``: ``read`` (``read_metis``) and ``output`` (the
+cover's check, its cost and ``write_solution``).
 """
 
 from __future__ import annotations
@@ -72,15 +77,26 @@ def main(argv=None):
         except RuntimeError as e:
             ap.error(f"--shards {args.shards}: {e}")
 
+    from gnn_mwvc_tpu_torch.utils.metrics import recording
+
+    with recording() as rec:
+        return _run(args, mesh, rec)
+
+
+def _run(args, mesh, rec):
+    """Read, solve, check and write; ``rec`` records the ``read`` and
+    ``output`` spans (the solve records its own)."""
     from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
                                             read_metis, write_solution)
     from gnn_mwvc_tpu_torch.models import MWVCModel, load_model
     from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer, solve
     from gnn_mwvc_tpu_torch.solver.quick import QuickScorer
+    from gnn_mwvc_tpu_torch.utils.metrics import span
 
     name = os.path.splitext(os.path.basename(args.graph))[0]
     try:
-        g = read_metis(args.graph)
+        with span("read"):
+            g = read_metis(args.graph)
     except OSError as e:
         print(f"Error opening graph file: {e}")
         return 1
@@ -106,13 +122,14 @@ def main(argv=None):
                 device_assist=("auto" if args.device_assist is None
                                else args.device_assist))
 
-    if not is_vertex_cover(g, res.solution):
-        print("Result is not a vertex cover")
-        return 1
-    if cover_cost(g, res.solution) != res.cost:
-        print("Result cost does not match the cover")
-        return 1
-    write_solution(args.result, res.solution)
+    with span("output"):
+        if not is_vertex_cover(g, res.solution):
+            print("Result is not a vertex cover")
+            return 1
+        if cover_cost(g, res.solution) != res.cost:
+            print("Result cost does not match the cover")
+            return 1
+        write_solution(args.result, res.solution)
 
     if args.json:
         print(json.dumps({
@@ -122,7 +139,7 @@ def main(argv=None):
             "kernel_size": res.kernel_size, "initial_cost": res.initial_cost,
             "counters": res.counters.tolist(), "ls_steps": res.ls_steps,
             "phase1": res.phase1, "assist": res.assist_stats,
-            "device": args.device,
+            "device": args.device, "cli_spans": rec.as_dict(),
         }))
     elif verbose:
         print(f"Vertex cover cost: {res.cost}, found in "

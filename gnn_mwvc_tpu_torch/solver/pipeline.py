@@ -164,7 +164,8 @@ class SolveResult:
     counters: np.ndarray        # rule-fire counters r1..r8
     ls_steps: int = 0
     assist_stats: Optional[dict] = None
-    # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds, the
+    # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds,
+    # live_after_reduce0 (the vertices the initial reduction left), the
     # scorer's own stats under "scorer", dependent_folds (the folds the
     # core refused) and kernel_edges_uncovered, the vertices
     # cover_uncovered_edges added (0 where nothing is left to cover);
@@ -188,7 +189,8 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
     with span("reduce") as sp:
         core.reduce()
     split = {"t_reduce0_s": sp.seconds, "t_score_s": 0.0,
-             "t_peel_s": 0.0, "rounds": 0}
+             "t_peel_s": 0.0, "rounds": 0,
+             "live_after_reduce0": core.active_count}
     t_kernel = None
     kernel_size = 0
     initial_cost = 0
