@@ -9,9 +9,14 @@ JAX copy holds 16.  In ``revgraph.hpp`` and ``solver.hpp``, the
 independent-neighbourhood fold is made only when an order-free check agrees
 that N(u) is independent (a fold gadget's adjacency list is not sorted, and
 the JAX copy's sorted merge can pass a dependent N(u)); the refused folds
-are counted (``CoreSolver.dependent_folds``).  One entry is the port's
-alone: ``capi.cpp``'s ``mwvc_ls_apply_regions`` applies a whole region
-batch in one call (``CoreLocalSearch.apply_regions``).  g++ compiles
+are counted (``CoreSolver.dependent_folds``).  In ``solver.hpp`` the two
+meta rules first test exact weight bounds, and build and solve their small
+instance only where the bounds leave the outcome open: every decision is
+the JAX copy's (``CoreSolver.meta_counts`` counts the instances).  Two
+entries are the port's alone: ``capi.cpp``'s ``mwvc_ls_apply_regions``
+applies a whole region batch in one call
+(``CoreLocalSearch.apply_regions``), and ``mwvc_meta_counts`` reads those
+counts.  g++ compiles
 ``core/src/capi.cpp`` (with the headers beside it) into
 ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
 ``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
@@ -84,6 +89,7 @@ _SIGNATURES = {
     "mwvc_labels_from_model": ([_c], ct.c_uint64),
     "mwvc_mistakes_from_model": ([_c], ct.c_uint64),
     "mwvc_dependent_folds": ([_c], ct.c_uint64),
+    "mwvc_meta_counts": ([_c, u64p], None),
     "mwvc_neighbors_independent": ([_c, ct.c_uint32, ct.c_int], ct.c_int),
     "mwvc_bfs_order": ([ct.c_uint32, u64p, u32p, u32p], None),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
@@ -373,6 +379,16 @@ class CoreSolver:
         because N(u) was not independent though the sorted merge passed it
         (the JAX package's copy of the core makes those folds)."""
         return int(self._lib.mwvc_dependent_folds(self._h))
+
+    @property
+    def meta_counts(self):
+        """The small instances the two meta rules would build, over the
+        whole solve: ``meta_evals``, of which ``meta_bound_decided`` a
+        weight bound decided unbuilt and ``meta_solved`` were solved."""
+        out = np.zeros(3, dtype=np.uint64)
+        self._lib.mwvc_meta_counts(self._h, out)
+        return dict(zip(("meta_evals", "meta_bound_decided", "meta_solved"),
+                        (int(x) for x in out)))
 
     def neighbors_independent(self, u, exact=True):
         """Whether no two live neighbours of ``u`` are adjacent: the

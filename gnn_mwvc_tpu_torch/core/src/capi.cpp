@@ -327,6 +327,15 @@ int mwvc_neighbors_independent(void *h, u32 u, int exact) {
     return exact ? g.neighbors_independent(u) : g.has_independent_neighbors(u);
 }
 
+// The meta rules' small instances over the whole solve (the exact component
+// solves' included): evaluated, decided by a weight bound, solved.
+void mwvc_meta_counts(void *h, u64 *out3) {
+    auto *s = (Solver *)h;
+    out3[0] = s->meta_evals;
+    out3[1] = s->meta_bound_decided;
+    out3[2] = s->meta_solved;
+}
+
 void mwvc_unfold(void *h, u64 t) { ((Solver *)h)->unfold(t); }
 
 // Non-destructive full-solution preview: deep-copy the solver (RevGraph is

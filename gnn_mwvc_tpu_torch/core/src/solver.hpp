@@ -217,6 +217,10 @@ class Solver {
 
     u64 labels_from_model = 0, mistakes_from_model = 0;
     u64 dependent_folds = 0;  // folds refused by rule_independent_fold
+    // The small instances the two meta rules would build and solve: those
+    // their weight bounds decide (no instance built) and those solved.
+    u64 meta_evals = 0, meta_bound_decided = 0, meta_solved = 0;
+    std::vector<u32> meta_tmp;  // rule_neighbor_meta's N(v) \ N[u]
 
     // ---- device bulk-apply support (solver/device_reduce.py) -----------
     // Device rule masks are computed on a snapshot; during the bulk-apply
@@ -428,8 +432,14 @@ class Solver {
             out.push_back(g.arena[a].nbr);
     }
 
+    // Both meta rules compare the heaviest independent set of a small
+    // instance H (C - VC, with C its weight) with a vertex weight.  That set
+    // weighs at least H's heaviest vertex and at most C, so where a bound
+    // already decides the comparison, H is neither built nor solved.
     bool rule_neighbor_meta(u32 u) {  // r4 counter slot
-        std::vector<u32> tmp;
+        std::vector<u32> &tmp = meta_tmp;
+        tmp.clear();
+        i64 wu = (i64)g.w[u];
         for (u32 e = g.first(u); !g.at_end(u, e); e = g.arena[e].next) {
             u32 v = g.arena[e].nbr;
             if (g.w[v] <= g.w[u] ||
@@ -437,17 +447,28 @@ class Solver {
                 continue;
             neighborhood_difference(v, u, tmp, MAX_SMALL_SOLVE);
             if (tmp.size() <= MAX_SMALL_SOLVE) {
-                sms.reset();
+                meta_evals++;
+                i64 C = 0, mx = 0, wv = (i64)g.w[v];
                 for (u32 x : tmp) {
-                    sms.add_node(x, (int64_t)g.w[x]);
-                    for (u32 f = g.first(x); !g.at_end(x, f);
-                         f = g.arena[f].next)
-                        sms.add_edge(x, g.arena[f].nbr);
-                }
-                i64 C = 0, VC = sms.solve();
-                for (u32 x : tmp)
                     C += (i64)g.w[x];
-                if (C - VC + (i64)g.w[u] <= (i64)g.w[v]) {
+                    mx = std::max(mx, (i64)g.w[x]);
+                }
+                bool fire;
+                if (mx + wu > wv || C + wu <= wv) {
+                    meta_bound_decided++;
+                    fire = C + wu <= wv;
+                } else {
+                    meta_solved++;
+                    sms.reset();
+                    for (u32 x : tmp) {
+                        sms.add_node(x, (int64_t)g.w[x]);
+                        for (u32 f = g.first(x); !g.at_end(x, f);
+                             f = g.arena[f].next)
+                            sms.add_edge(x, g.arena[f].nbr);
+                    }
+                    fire = C - sms.solve() + wu <= wv;
+                }
+                if (fire) {
                     cnt.r[3] += 1;
                     select_node(u);
                     return true;
@@ -461,6 +482,13 @@ class Solver {
     bool rule_neighborhood_meta(u32 u) {  // r5 counter slot
         if (g.deg[u] > MAX_SMALL_SOLVE)
             return false;
+        meta_evals++;
+        for (u32 e = g.first(u); !g.at_end(u, e); e = g.arena[e].next)
+            if (g.w[g.arena[e].nbr] > g.w[u]) {
+                meta_bound_decided++;
+                return false;
+            }
+        meta_solved++;
         sms.reset();
         for (u32 e = g.first(u); !g.at_end(u, e); e = g.arena[e].next) {
             u32 v = g.arena[e].nbr;
@@ -752,6 +780,9 @@ inline void medium_solve(Solver &parent, std::vector<u32> &nodes) {
     child.init(cn, wts.data(), eu.size(), eu.data(), ev.data());
     medium_solve_req(child);
     parent.dependent_folds += child.dependent_folds;
+    parent.meta_evals += child.meta_evals;
+    parent.meta_bound_decided += child.meta_bound_decided;
+    parent.meta_solved += child.meta_solved;
 
     for (u32 i = 0; i < cn; ++i) {
         if (!g.active[nodes[i]])

@@ -167,7 +167,8 @@ class SolveResult:
     # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds,
     # live_after_reduce0 (the vertices the initial reduction left), the
     # scorer's own stats under "scorer", dependent_folds (the folds the
-    # core refused) and kernel_edges_uncovered, the vertices
+    # core refused), the meta rules' meta_evals, meta_bound_decided and
+    # meta_solved (core.meta_counts) and kernel_edges_uncovered, the vertices
     # cover_uncovered_edges added (0 where nothing is left to cover);
     # "spans": every span of the solve, phase 2's too, as
     # {name: {"seconds", "calls"}} (utils/metrics.py)
@@ -239,6 +240,7 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
         if metrics is not None:
             metrics.record_scorer(dict(scorer.stats))
     split["dependent_folds"] = core.dependent_folds
+    split.update(core.meta_counts)
     return t_kernel, kernel_size, initial_cost, split
 
 

@@ -1,6 +1,7 @@
 """The port's own native-core bindings against the JAX package's.
 
-Both bind the same C++ sources but for the port's two repairs; the port
+Both bind the same C++ sources but for the port's two repairs and the meta
+rules' weight bounds, which decide as the JAX copy does; the port
 compiles its copy into its own ``_build/`` directory.  Same inputs, same
 calls: the arrays must be equal, except where the JAX copy folds a
 dependent neighbourhood, which the port's copy refuses.

@@ -7,15 +7,20 @@ neighbourhood.
 Only ``gnn_mwvc_tpu_torch.core`` and ``gnn_mwvc_tpu_torch.graph`` are used,
 so ``gnn_mwvc_tpu_torch/core/sanitize.sh`` can run this file against a
 sanitizer build of the port's sources (``--noconftest``: it loads neither
-jax nor the JAX package).
+jax nor the JAX package).  The one exception, the meta rules' comparison
+with the JAX package's core, imports that core inside the test and skips
+where ``MWVC_CORE_LIB`` names a library, which both packages would load.
 """
+
+import os
 
 import numpy as np
 import pytest
 
 from gnn_mwvc_tpu_torch.core import (CoreLocalSearch, CoreSolver,
                                      confidence_order_native, greedy_cover)
-from gnn_mwvc_tpu_torch.graph import Graph, build_road_graph, random_graph
+from gnn_mwvc_tpu_torch.graph import (Graph, build_road_graph,
+                                      geometric_graph, random_graph)
 
 
 def covers(g: Graph, sel) -> bool:
@@ -300,13 +305,22 @@ def exact_solve(core_cls, g):
     return s
 
 
-def random_peel(core_cls, g, seed):
+def random_peel(core_cls, g, seed, components=False, after_reduce=None):
     """Reduce, then peel at seeded random scores in the pipeline's
-    confidence order until nothing is left, and unfold: the core."""
+    confidence order until nothing is left, and unfold: the core.  With
+    ``components``, each round first solves the small components exactly,
+    as the pipeline does.  ``after_reduce`` (a list) receives the live ids,
+    cost and rule counters that the initial reduction leaves."""
     s = core_cls(g.weights, g.edge_array())
     s.reduce()
+    if after_reduce is not None:
+        after_reduce += [s.snapshot().ids, s.cost, s.counters]
     rng = np.random.default_rng(seed)
     while s.active_count > 0:
+        if components:
+            s.solve_small_components(75)
+            if s.active_count == 0:
+                break
         snap = s.snapshot()
         prob = rng.random(snap.n).astype(np.float32)
         order = confidence_order_native(prob, snap.weights, snap.deg, 1e-4)
@@ -383,3 +397,84 @@ def test_neighbors_independent_is_the_set_check_on_gadget_snapshots():
         core.reset_label_count()
         core.peel(snap.ids, prob, -1)
     assert passed >= 1
+
+
+def unit_geometric():
+    g = geometric_graph(1 << 12, seed=3)
+    return Graph(np.ones(g.n, np.int64), g.edge_array())
+
+
+# The meta rules decide from weight bounds where those settle the test, and
+# solve the small instance only where they do not; the JAX package's core
+# solves every one.  Graphs whose initial reduction and peel give the same
+# live ids, cost and counters in both (the port refuses no fold on them);
+# at unit weights no neighbour is heavier, so every bound ties.
+META_JAX_GRAPHS = {
+    "road40": lambda: build_road_graph(40),
+    "road80": lambda: build_road_graph(80),
+    "geometric4096": lambda: geometric_graph(1 << 12, seed=3),
+    "random2000_w200": lambda: random_graph(2000, 14, seed=7, wmax=200),
+    "unit_geometric4096": unit_geometric,
+}
+# Gadget graphs on which the port refuses a fold, so the JAX core differs:
+# (live count, cost, counters) after the initial reduction and (cost,
+# counters) after random_peel, as the core gave before the meta rules'
+# bounds (seed 0 of random_peel's scores).
+META_PINNED = {
+    "gadget40_245": (gadget_graph(40, 245), (
+        7, 806, [13, 0, 2, 2, 0, 12, 4, 0], 903, [15, 1, 2, 2, 0, 12, 4, 0])),
+    "gadget24_2598": (gadget_graph(24, 2598), (
+        8, 1071, [1, 0, 0, 0, 0, 8, 7, 0], 1595, [6, 0, 0, 0, 0, 8, 7, 0])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(META_JAX_GRAPHS) + sorted(
+    META_PINNED))
+def test_meta_rule_bounds_keep_every_decision(name):
+    """The initial reduction and a whole peel decide as the meta rules do
+    without their weight bounds: against the JAX package's core where the
+    port refuses no fold, else against the counts pinned before the
+    bounds."""
+    if name in META_PINNED:
+        g, (live, cost, counters, peel_cost, peel_counters) = (
+            META_PINNED[name])
+        after = []
+        s = random_peel(CoreSolver, g, 0, after_reduce=after)
+        assert (len(after[0]), after[1]) == (live, cost)
+        assert after[2].tolist() == counters
+        assert (s.cost, s.counters.tolist()) == (peel_cost, peel_counters)
+        assert s.dependent_folds >= 1
+        return
+    if os.environ.get("MWVC_CORE_LIB"):
+        pytest.skip("MWVC_CORE_LIB: both packages would load that library")
+    from gnn_mwvc_tpu import core as jax_core
+
+    g = META_JAX_GRAPHS[name]()
+    mine, theirs = [], []
+    s = random_peel(CoreSolver, g, 0, components=True, after_reduce=mine)
+    r = random_peel(jax_core.CoreSolver, g, 0, components=True,
+                    after_reduce=theirs)
+    assert s.dependent_folds == 0
+    np.testing.assert_array_equal(mine[0], theirs[0])
+    assert mine[1] == theirs[1]
+    np.testing.assert_array_equal(mine[2], theirs[2])
+    assert (s.cost, s.counters.tolist()) == (r.cost, r.counters.tolist())
+    np.testing.assert_array_equal(s.solution(), r.solution())
+    assert s.meta_counts["meta_evals"] > 0
+
+
+def test_meta_counts_add_up_on_road80():
+    """On road80 every small instance of the meta rules is either decided
+    by a bound or solved, in the initial reduction and over a whole peel
+    (the exact component solves' instances included), and the bounds
+    decide most of them."""
+    g = build_road_graph(80)
+    s = CoreSolver(g.weights, g.edge_array())
+    s.reduce()
+    first = s.meta_counts
+    peeled = random_peel(CoreSolver, g, 0, components=True).meta_counts
+    for c in (first, peeled):
+        assert c["meta_bound_decided"] + c["meta_solved"] == c["meta_evals"]
+        assert c["meta_evals"] > 0
+        assert c["meta_bound_decided"] > c["meta_evals"] / 2
+    assert peeled["meta_evals"] > first["meta_evals"]

@@ -235,7 +235,7 @@ def test_a_planted_fault_is_not_correct(runs, plant, check):
 
 READERS = ("cover_s", "reduce_s", "peel_s", "score_s", "components_s",
            "k1_roofline.cover", "device_idle.cover", "read_s", "output_s",
-           "reduce_rate")
+           "reduce_rate", "meta_bound_share")
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,17 @@ def test_solve_reordered_maps_back_to_input_ids():
     assert cover_cost(g, res.solution) == res.cost
 
 
+def test_phase1_counts_the_meta_rules_instances():
+    """phase1 carries the core's meta-rule counts beside dependent_folds:
+    each small instance was either decided by a weight bound or solved."""
+    res = solve(_port_graph(bench.build_road_graph(50)), time_limit=0,
+                device="cpu")
+    p1 = res.phase1
+    assert "dependent_folds" in p1
+    assert p1["meta_evals"] > 0
+    assert p1["meta_bound_decided"] + p1["meta_solved"] == p1["meta_evals"]
+
+
 @pytest.mark.parametrize("name", ["er1500", "road60", "road100"])
 def test_phase1_cover_cost_equals_jax(name):
     """time_limit=0: the peeled cover alone, per-snapshot scoring on both

@@ -26,10 +26,11 @@ JAX_PKG = os.path.join(REPO, "gnn_mwvc_tpu")
 # The port's copy of the core differs from the JAX package's by two
 # repairs: apply_region's buffer of flipped vertices (localsearch.hpp), and
 # the independent-neighbourhood fold refused on a dependent neighbourhood
-# (revgraph.hpp, solver.hpp, capi.cpp); and by one addition, the entry that
-# applies a whole region batch in one call (capi.cpp).  Per file, each entry
-# is the JAX copy's text and the first and last lines of the port's text in
-# its place.
+# (revgraph.hpp, solver.hpp, capi.cpp); by the meta rules' weight bounds,
+# which decide as the JAX copy's rules do, and their counts (solver.hpp,
+# capi.cpp); and by one addition, the entry that applies a whole region
+# batch in one call (capi.cpp).  Per file, each entry is the JAX copy's
+# text and the first and last lines of the port's text in its place.
 REPAIRS = {
     "localsearch.hpp": [
         ("", "    //\n    // This copy differs", "before anything is written.\n"),
@@ -55,18 +56,41 @@ REPAIRS = {
     ],
     "solver.hpp": [
         ("", "    u64 dependent_folds = 0;", "by rule_independent_fold\n"),
+        ("", "    // The small instances the two meta rules",
+         "rule_neighbor_meta's N(v) \\ N[u]\n"),
         ("        if (g.has_independent_neighbors(u)) {\n",
          "        // This copy differs from the JAX package's here.",
          "        if (independent) {\n"),
         ("    // quirks (reference: mwvc_reductions.hpp:179-202).\n",
          "    // quirks (reference: mwvc_reductions.hpp:179-202).  Every",
          "can only make the rule miss.\n"),
+        ("    bool rule_neighbor_meta(u32 u) {  // r4 counter slot\n"
+         "        std::vector<u32> tmp;\n",
+         "    // Both meta rules compare the heaviest",
+         "        i64 wu = (i64)g.w[u];\n"),
+        ("                sms.reset();\n"
+         "                for (u32 x : tmp) {\n"
+         "                    sms.add_node(x, (int64_t)g.w[x]);\n"
+         "                    for (u32 f = g.first(x); !g.at_end(x, f);\n"
+         "                         f = g.arena[f].next)\n"
+         "                        sms.add_edge(x, g.arena[f].nbr);\n"
+         "                }\n"
+         "                i64 C = 0, VC = sms.solve();\n"
+         "                for (u32 x : tmp)\n"
+         "                    C += (i64)g.w[x];\n"
+         "                if (C - VC + (i64)g.w[u] <= (i64)g.w[v]) {\n",
+         "                meta_evals++;\n                i64 C = 0, mx = 0",
+         "                if (fire) {\n"),
+        ("", "        meta_evals++;\n        for (u32 e",
+         "            }\n        meta_solved++;\n"),
         ("", "    parent.dependent_folds += child.dependent_folds;\n",
-         "child.dependent_folds;\n"),
+         "child.meta_solved;\n"),
     ],
     "capi.cpp": [
         ("", "\n// Folds on a dependent neighbourhood",
          ": g.has_independent_neighbors(u);\n}\n"),
+        ("", "\n// The meta rules' small instances",
+         "    out3[2] = s->meta_solved;\n}\n"),
         ("", "\n// A finished region batch applied in one call",
          "    *out_wide = wide;\n    return applied;\n}\n"),
     ],
@@ -151,7 +175,7 @@ def test_weights_file_equals_the_jax_package_copy():
 @pytest.mark.parametrize("name", api._SOURCES)
 def test_core_sources_equal_the_jax_package_copy(name):
     """Every source the core is built from is the JAX package's, byte for
-    byte, but for the two repairs and the one addition of ``REPAIRS``: with
+    byte, but for the repairs, bounds and additions of ``REPAIRS``: with
     each entry's text put back to the JAX copy's, the file is the JAX copy."""
     assert api.SRC_DIR == os.path.join(PORT, "core", "src")
     assert sorted(os.listdir(api.SRC_DIR)) == sorted(api._SOURCES)
