@@ -715,7 +715,7 @@ def phase_solve(torch, g, time_limit):
              f"{p1['rounds']}, per-snapshot device {snap_dev}")
     print(f"solve routing: {sticky} sticky rounds, {legacy} per-snapshot "
           f"rounds on {snap_dev} (under {scorer.min_live_edges:,} live "
-          f"directed edges) in {scorer.stats['seconds_legacy']:.3f} s; K1 "
+          f"directed edges); score {p1['spans']['score']['seconds']:.3f} s; K1 "
           f"{k1} launches over {p1['rounds']} rounds")
     stats = res.assist_stats or {}
     if k4 < 1 or stats.get("batches", 0) < 1:
@@ -1050,7 +1050,7 @@ def phase_surfaces(seed, big):
                     k1 < 2 * p1["rounds"]:
                 fail(f"{what}: K1 launched {k1} times over "
                      f"{p1['rounds']} rounds: {rec}")
-            if "scorer" in p1:   # GnnScorer keeps no stats; a sticky one does
+            if "rebuilds" in p1["scorer"]:   # a sticky scorer's count
                 fail(f"{what}: phase 1 was not scored per snapshot: {p1}")
             cover = read_solution(sol)
             if not is_vertex_cover(graph, cover) or \
@@ -1263,7 +1263,7 @@ def phase_sharded_forward(torch, g, rng, layouts, counts=SHARD_COUNTS):
             fwd = make_sticky_sharded_forward(model, mesh)
             _build.launches.clear()
             (got, aggs, calls), by_card = k1_by_card(
-                lambda: recorded(sharded_mod, lambda: fwd(sg, bufs, None, ws)))
+                lambda: recorded(sharded_mod, lambda: fwd(sg, bufs, ws)))
             synchronize(mesh.devices)
             k1 = _build.launches["csr_aggregate"]
             if k1 != 2 * parts or len(aggs) != 2 * parts:
@@ -1300,7 +1300,7 @@ def phase_sharded_forward(torch, g, rng, layouts, counts=SHARD_COUNTS):
             if not bool(torch.isfinite(scores).all()) or err > 1e-5:
                 fail(f"sharded forward P={parts} ({layout}): scores differ "
                      f"by {err}")
-            ms = mesh_seconds_per_call(lambda: fwd(sg, bufs, None, ws),
+            ms = mesh_seconds_per_call(lambda: fwd(sg, bufs, ws),
                                        mesh.devices, 10) * 1e3
             # the unmasked forward of parallel.dryrun dist, for its ranks
             plain_fwd = make_sharded_forward(model, mesh,
@@ -1362,7 +1362,8 @@ def phase_sharded_solve(torch, g, layouts, parts=SHARD_COUNTS[-1]):
     from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
     from gnn_mwvc_tpu_torch.ops import _build
     from gnn_mwvc_tpu_torch.parallel import make_mesh
-    from gnn_mwvc_tpu_torch.solver import ShardedGnnScorer, solve
+    from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 
     runs = {}
     for layout, place in layouts.items():
@@ -1884,6 +1885,10 @@ class TimedSnapshotScorer:
         self.device = card_scorer.device
         self.rows = []
 
+    def score_core(self, core, weight_scale):
+        snap = core.snapshot()
+        return snap.ids, self(snap, weight_scale), snap.weights, snap.deg
+
     def __call__(self, snap, weight_scale):
         import torch
 
@@ -2234,12 +2239,13 @@ def phase_scale():
         fail(f"scale: K4 launched {n_k4} times, assist {st}")
     check_open_edges(sc, "scale")
     t_p1 = rec["t_gnn"]
-    parts = {k: sc.get(k, 0.0) for k in
-             ("t_cluster_s", "t_reduce0_s", "t_score_s", "t_peel_s")}
+    parts = {k: sc.get(k, 0.0) for k in ("t_reduce0_s", "t_score_s",
+                                         "t_peel_s")}
+    parts["relabel_s"] = sc["spans"].get("relabel", {}).get("seconds", 0.0)
     phase2 = rec["wall"] - t_p1
     print(f"scale {road} (--time {SCALE_TIME:g} --seed {SCALE_SEED}): "
           f"n={n} m={m}, kernel {run['kernel_size']}; phase 1 {t_p1} s (relabel "
-          f"{parts['t_cluster_s']:.3f}, reduce {parts['t_reduce0_s']:.3f}, "
+          f"{parts['relabel_s']:.3f}, reduce {parts['t_reduce0_s']:.3f}, "
           f"score {parts['t_score_s']:.3f}, peel {parts['t_peel_s']:.3f}, "
           f"rest {t_p1 - sum(parts.values()):.3f}), cost {phase1_cost}; "
           f"rounds {sc['rounds'] - sc['legacy_rounds']} sticky + "

@@ -38,10 +38,10 @@ import time
 import torch
 
 from gnn_mwvc_tpu_torch.core import cluster_order
-from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
+from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
+                                      resolve_device)
 from gnn_mwvc_tpu_torch.graphio import write_metis
 from gnn_mwvc_tpu_torch.models import pretrained_model
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 
 __all__ = ["REFERENCE_EDGES_PER_S", "measure_reference", "main"]
 

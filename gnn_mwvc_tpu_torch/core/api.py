@@ -109,8 +109,6 @@ _SIGNATURES = {
     "mwvc_sticky_deltas": ([_c, ct.c_uint32, u32p, u64p, u64p, u32p, u8p,
                             i32p, f32p, f32p, f32p, u8p, ct.c_uint32],
                            ct.c_uint32),
-    "mwvc_node_range": ([_c, ct.c_uint32, ct.c_uint32, u8p, u64p, u32p],
-                        None),
     "mwvc_node_arrays": ([_c, u8p, u64p, u64p, u32p], None),
     "mwvc_live_edges": ([_c], ct.c_uint64),
     "mwvc_ls_create": ([ct.c_uint32, u32p, ct.c_uint32, u32p, u32p, u8p], _c),
@@ -315,27 +313,23 @@ class CoreSolver:
         ids = np.ascontiguousarray(ids, dtype=np.uint32)
         return int(self._lib.mwvc_bulk_r5(self._h, ids, len(ids)))
 
-    def sticky_deltas(self, ids, prev_w, prev_nw, prev_deg, prev_act,
-                      out_idx, out_vw, out_vnw, out_vdeg, out_vm):
-        """One-pass live-state delta refresh for sticky scoring: updates the
-        raw prev arrays IN PLACE and emits up to len(out_idx) changed rows
-        as f32 device deltas.  Returns the total changed count (more than
-        len(out_idx) means the caller should upload the updated prev arrays
-        in full)."""
-        return int(self._lib.mwvc_sticky_deltas(
-            self._h, len(ids), ids, prev_w, prev_nw, prev_deg, prev_act,
-            out_idx, out_vw, out_vnw, out_vdeg, out_vm, len(out_idx)))
-
-    def node_range(self, lo: int, hi: int):
-        """Live (active, w, deg) over ids [lo, hi): the fold-gadget tail
-        created after a sticky build; O(hi - lo)."""
-        k = max(hi - lo, 0)
-        act = np.empty(k, np.uint8)
-        w = np.empty(k, np.uint64)
-        deg = np.empty(k, np.uint32)
-        if k:
-            self._lib.mwvc_node_range(self._h, lo, hi, act, w, deg)
-        return act, w, deg
+    def live_rows(self, ids):
+        """Live (active, w, nw, deg) of the nodes ``ids``, in their order:
+        one pass in the core, O(len(ids))."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint32)
+        k = len(ids)
+        act = np.zeros(k, np.uint8)
+        w = np.zeros(k, np.uint64)   # u64: twin folds sum weights past 2^32
+        nw = np.zeros(k, np.uint64)
+        deg = np.zeros(k, np.uint32)
+        # the delta pass against all-zero rows writes every live value into
+        # them; with no delta slots it emits nothing
+        none_i, none_f, none_m = (np.empty(0, np.int32),
+                                  np.empty(0, np.float32),
+                                  np.empty(0, np.uint8))
+        self._lib.mwvc_sticky_deltas(self._h, k, ids, w, nw, deg, act,
+                                     none_i, none_f, none_f, none_f, none_m, 0)
+        return act, w, nw, deg
 
     def node_arrays(self):
         """Live (active, w, nw, deg) over the whole node-id space [0, size):

@@ -19,10 +19,9 @@ import sys
 import numpy as np
 import torch
 
-from gnn_mwvc_tpu_torch.graph import DeviceGraph
+from gnn_mwvc_tpu_torch.graph import DeviceGraph, resolve_device
 from gnn_mwvc_tpu_torch.models import pretrained_model
 from gnn_mwvc_tpu_torch.parallel import dryrun
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 
 __all__ = ["entry", "main"]
 

@@ -20,7 +20,7 @@ from gnn_mwvc_tpu_torch.core import relabel_csr
 
 __all__ = ["Graph", "DeviceGraph", "build_road_graph", "geometric_graph",
            "neighbour_weight_sum", "powerlaw_graph", "random_graph",
-           "reorder_plain"]
+           "reorder_plain", "resolve_device"]
 
 
 def neighbour_weight_sum(weights_f32: np.ndarray, rows: np.ndarray,
@@ -126,6 +126,16 @@ def reorder_plain(g: Graph, perm: np.ndarray) -> Graph:
     inv = np.empty(g.n, dtype=np.int64)
     inv[perm] = np.arange(g.n)
     return Graph(g.weights[perm], np.sort(inv[g.edge_array()], axis=1))
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device to run on; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available; "
+            "pass device='cpu' to run on the host")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -82,7 +82,8 @@ def train_labels(sg, seed: int = 0) -> np.ndarray:
 def dryrun_multichip(n_devices: int, devices=None) -> dict:
     """The train step, forward and integrated solve over a local mesh of
     ``n_devices`` shards (``devices`` as ``make_mesh`` takes them)."""
-    from gnn_mwvc_tpu_torch.solver import ShardedGnnScorer, solve
+    from gnn_mwvc_tpu_torch.solver.pipeline import solve
+    from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 
     mesh = make_mesh(n_devices, devices=devices)
     home = mesh.devices[0]

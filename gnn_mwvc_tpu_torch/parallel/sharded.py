@@ -412,21 +412,16 @@ def make_sticky_sharded_forward(model: MWVCModel, mesh: Mesh,
                                 compat: bool = True,
                                 precision: str = "highest"):
     """The mesh counterpart of the sticky scorer's round:
-    ``forward(sg, bufs, upd, ws) -> [scores (n_loc,) of each local shard]``.
+    ``forward(sg, bufs, ws) -> [scores (n_loc,) of each local shard]``.
 
-    bufs: each local shard's persistent (4, n_loc) tensor on its device,
-    rows W, NW, D, active.  upd: None, or per local shard None or
-    ``(idx, vals)``, local rows (k,) int64 and their new values (4, k),
-    written into bufs with ``index_copy_`` before the masked forward (the
-    first graph layer reads NW/ws).  precision: as ``MWVCModel.forward``.
+    bufs: each local shard's (4, n_loc) tensor on its device, rows W, NW,
+    D, active; the masked forward's first graph layer reads NW/ws.
+    precision: as ``MWVCModel.forward``.
     """
     model = _model_on_mesh(model, mesh)
 
     @torch.no_grad()
-    def forward(sg: ShardedGraph, bufs: list, upd, ws: float) -> list:
-        for buf, u in zip(bufs, upd or [None] * len(bufs)):
-            if u is not None:
-                buf.index_copy_(1, u[0], u[1])
+    def forward(sg: ShardedGraph, bufs: list, ws: float) -> list:
         masks = [b[3] for b in bufs]
         xs = [(b[0] / ws * b[3]).reshape(-1, 1) for b in bufs]
         stats = [_Stats(degrees=b[2], weights=b[0], nw=b[1]) for b in bufs]

@@ -1,8 +1,3 @@
-from gnn_mwvc_tpu_torch.solver.pipeline import (  # noqa: F401
-    GnnScorer,
-    SolveResult,
-    solve,
-)
-from gnn_mwvc_tpu_torch.solver.sharded_score import (  # noqa: F401
-    ShardedGnnScorer,
-)
+"""The solver: ``pipeline.solve`` and its phase-1 scorers
+(``static_score``, ``sharded_score``, ``quick``), the command lines and the
+harnesses around them.  Each name is imported from its own module."""

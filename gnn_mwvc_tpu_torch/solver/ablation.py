@@ -21,7 +21,7 @@ from gnn_mwvc_tpu_torch.core import CoreSolver, improve_cover
 from gnn_mwvc_tpu_torch.graph import Graph
 from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
 from gnn_mwvc_tpu_torch.models import MWVCModel
-from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer
+from gnn_mwvc_tpu_torch.solver.static_score import GnnScorer
 
 __all__ = ["AblationResult", "run_config", "run_ablation", "ablation_csv"]
 

@@ -144,8 +144,8 @@ def main(argv=None):
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
+    from gnn_mwvc_tpu_torch.graph import resolve_device
     from gnn_mwvc_tpu_torch.graphio import read_metis
-    from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 
     solvers = args.solvers.split(",")
     if {"gnn", "quick"} & set(solvers):

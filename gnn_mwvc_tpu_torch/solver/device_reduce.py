@@ -24,10 +24,10 @@ import numpy as np
 import torch
 
 from gnn_mwvc_tpu_torch.core import CoreSolver
+from gnn_mwvc_tpu_torch.graph import resolve_device
 from gnn_mwvc_tpu_torch.ops.rules import (build_ell8, mask_inputs,
                                           r5_candidates, rule_masks,
                                           twin_groups)
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 
 __all__ = ["device_reduce_prepass"]
 

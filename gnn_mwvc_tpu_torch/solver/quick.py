@@ -5,9 +5,9 @@ QUICK_VC orders vertices by weight descending then degree ascending and
 excludes greedily (every vertex scored as an exclusion candidate); the peel
 treats a score < 0.5 as "exclude the vertex, take its neighbourhood".  To
 reproduce that order through the confidence comparator the scores lie in
-(0, 0.5), and their confidence margin encodes the priority.  A per-snapshot
-scorer of ``gnn_peel``: ``scorer(snapshot, weight_scale) -> prob``, on the
-host; no device is involved.
+(0, 0.5), and their confidence margin encodes the priority.  A phase-1
+scorer of ``gnn_peel`` (``score_core``) over each round's snapshot, on the
+host; no model and no device are involved.
 """
 
 from __future__ import annotations
@@ -18,6 +18,16 @@ __all__ = ["QuickScorer"]
 
 
 class QuickScorer:
+    model = None
+
+    def __init__(self):
+        self.stats = {"rounds": 0}
+
+    def score_core(self, core, weight_scale: float):
+        snap = core.snapshot()
+        self.stats["rounds"] += 1
+        return snap.ids, self(snap, weight_scale), snap.weights, snap.deg
+
     def __call__(self, snap, weight_scale: float) -> np.ndarray:
         w = snap.weights.astype(np.float64)
         d = np.maximum(snap.deg.astype(np.float64), 1.0)

@@ -1,7 +1,6 @@
 """Phase-1 scoring over a mesh of devices, in the solve pipeline.
 
-``ShardedGnnScorer`` has the sticky ``score_core`` protocol of
-``pipeline.gnn_peel``, so
+``ShardedGnnScorer`` is a phase-1 scorer of ``pipeline.gnn_peel``, so
 
     solve(g, scorer=ShardedGnnScorer(mesh=make_mesh(P)))
 
@@ -12,10 +11,8 @@ partition in place of the device CSR:
   * the partition is built from the first snapshot and rebuilt, fresh, once
     fold gadgets exceed ``rebuild_gadget_frac`` of the nodes it was built
     with; gadgets get a neutral 0.5 until then;
-  * each round ``core.sticky_deltas`` gives the changed rows, which go to
-    their shard's persistent (4, n_loc) buffer with ``index_copy_``; a shard
-    with more than ``max(256, n_loc // 16)`` of them, or more changes than
-    all shards' slots, uploads every buffer in full;
+  * each round the built rows' live (W, NW, D, active) go in full
+    (``core.live_rows``) to each shard's (4, n_loc) buffer on its device;
   * the masked forward zeroes removed nodes before every aggregation, which
     is exact because a removal only deletes the removed node's edges;
   * below ``min_nodes`` active nodes a round is scored per snapshot with
@@ -69,8 +66,6 @@ class ShardedGnnScorer(StickyGnnScorer):
             min_nodes = 250_000 if cards else 0
         self.min_nodes = int(min_nodes)
         self._fn = make_sticky_sharded_forward(self.model, mesh, compat)
-        self._k_loc = 0
-        self._upd = None
         self.stats.update(parts=self.parts)
 
     def _per_snapshot(self, core) -> bool:
@@ -82,52 +77,20 @@ class ShardedGnnScorer(StickyGnnScorer):
                                nw=snap.nw)
         sg = partition_device_graph(dg, self.parts, devices=self.mesh)
         self._state = (sg, snap.ids, core.n_nodes, snap.n)
-        self._k_loc = max(256, sg.n_loc // 16)
-        self._live = None
-        self._prev = None
         self.stats["rebuilds"] += 1
         self.stats["h_max"] = sg.h_max
         self.stats["halo_bytes"] = sg.halo_bytes_per_chip()
 
-    def _refresh(self, core):
-        """Bring each shard's buffer up to date: deltas routed to their
-        shard, or a full upload."""
-        sg, ids, _bs, _ba = self._state
-        k, n_loc, parts = len(ids), sg.n_loc, self.parts
-        if self._prev is None:
-            self._prev = (np.zeros(k, np.uint64), np.zeros(k, np.uint64),
-                          np.zeros(k, np.uint32), np.zeros(k, np.uint8))
-        cap = parts * self._k_loc
-        idx = np.empty(cap, np.int32)
-        vals = np.empty((4, cap), np.float32)
-        vm = np.empty(cap, np.uint8)
-        cnt = core.sticky_deltas(ids, *self._prev, idx, vals[0], vals[1],
-                                 vals[2], vm)
-        self._upd = None
-        shard = idx[:min(cnt, cap)] // n_loc
-        if (self._live is None or cnt > cap
-                or np.bincount(shard, minlength=parts).max() > self._k_loc):
-            full = np.zeros((4, parts * n_loc), np.float32)
-            for row, a in enumerate(self._prev):
-                full[row, :k] = a.astype(np.float32)
-            self._live = [torch.from_numpy(full[:, p * n_loc:(p + 1) * n_loc]
-                                           .copy()).to(dev)
-                          for p, dev in enumerate(self.mesh.devices)]
-            self.stats["full_uploads"] += 1
-        elif cnt:
-            vals[3] = vm
-            order = np.argsort(shard, kind="stable")
-            bounds = np.searchsorted(shard[order], np.arange(parts + 1))
-            self._upd = []
-            for p, dev in enumerate(self.mesh.devices):
-                sel = order[bounds[p]:bounds[p + 1]]
-                self._upd.append(None if len(sel) == 0 else (
-                    torch.from_numpy(idx[sel].astype(np.int64) - p * n_loc)
-                    .to(dev), torch.from_numpy(vals[:, sel]).to(dev)))
-            self.stats["deltas"] += cnt
+    def _upload(self, rows):
+        """The built rows' live (W, NW, D, active), each shard's (4, n_loc)
+        block on its device."""
+        n_loc = self._state[0].n_loc
+        full = np.zeros((4, self.parts * n_loc), np.float32)
+        for row, a in enumerate(rows):
+            full[row, :len(a)] = a.astype(np.float32)
+        return [torch.from_numpy(full[:, p * n_loc:(p + 1) * n_loc].copy())
+                .to(dev) for p, dev in enumerate(self.mesh.devices)]
 
-    def _forward(self, weight_scale: float) -> np.ndarray:
+    def _forward(self, live, weight_scale: float) -> np.ndarray:
         sg = self._state[0]
-        outs = self._fn(sg, self._live, self._upd, weight_scale)
-        self._upd = None
-        return gather_scores(sg, outs)
+        return gather_scores(sg, self._fn(sg, live, weight_scale))

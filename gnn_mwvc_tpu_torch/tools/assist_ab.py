@@ -26,9 +26,9 @@ import time
 import numpy as np
 
 from gnn_mwvc_tpu_torch.core import CoreLocalSearch
+from gnn_mwvc_tpu_torch.graph import resolve_device
 from gnn_mwvc_tpu_torch.ops import _build
 from gnn_mwvc_tpu_torch.solver.device_assist import DeviceAssist
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import default_out
 
 VARIANTS = ("plain", "guided", "regions", "full")

@@ -28,11 +28,10 @@ import time
 import numpy as np
 import torch
 
-from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph
+from gnn_mwvc_tpu_torch.graph import DeviceGraph, Graph, resolve_device
 from gnn_mwvc_tpu_torch.models import pretrained_model
 from gnn_mwvc_tpu_torch.ops.aggregate import csr_aggregate, csr_aggregate_plain
 from gnn_mwvc_tpu_torch.parallel import synchronize
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import (default_out, graph_ms,
                                               hbm_bound_ms, seconds_per_call)
 

@@ -57,7 +57,6 @@ def record(surface, p1, t_gnn, cost, launches):
             "t_peel_s": p1["t_peel_s"], "spans": p1.get("spans"),
             "rounds": p1["rounds"], "sticky_rounds": sc.get("rounds"),
             "legacy_rounds": sc.get("legacy_rounds"),
-            "seconds_legacy": sc.get("seconds_legacy"),
             "kernel_edges_uncovered": p1.get("kernel_edges_uncovered"),
             "dependent_folds": p1.get("dependent_folds"),
             "cost": cost, "launches": launches}

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 
 from gnn_mwvc_tpu_torch.core import cluster_order
-from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph
+from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
+                                      resolve_device)
 from gnn_mwvc_tpu_torch.models import pretrained_model
 from gnn_mwvc_tpu_torch.parallel import synchronize
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import default_out, seconds_per_call
 
 # (setting, MWVCModel.forward's precision, what the row computes)

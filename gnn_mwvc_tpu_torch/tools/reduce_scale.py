@@ -20,9 +20,8 @@ import json
 import time
 
 from gnn_mwvc_tpu_torch.core import CoreSolver
-from gnn_mwvc_tpu_torch.graph import build_road_graph
+from gnn_mwvc_tpu_torch.graph import build_road_graph, resolve_device
 from gnn_mwvc_tpu_torch.solver.device_reduce import device_reduce_prepass
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import default_out
 
 

@@ -24,14 +24,13 @@ import time
 
 import numpy as np
 
-from gnn_mwvc_tpu_torch.graph import DeviceGraph, random_graph
+from gnn_mwvc_tpu_torch.graph import DeviceGraph, random_graph, resolve_device
 from gnn_mwvc_tpu_torch.models import pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.parallel import (Mesh, gather_scores,
                                          make_sharded_forward,
                                          mesh_seconds_per_call,
                                          partition_device_graph, place_mesh,
                                          synchronize)
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 
 
 def sharded_row(model, dg: DeviceGraph, ws: float, ref: np.ndarray,

@@ -23,10 +23,10 @@ import argparse
 import json
 
 from gnn_mwvc_tpu_torch.core import cluster_order
-from gnn_mwvc_tpu_torch.graph import DeviceGraph, build_road_graph, random_graph
+from gnn_mwvc_tpu_torch.graph import (DeviceGraph, build_road_graph,
+                                      random_graph, resolve_device)
 from gnn_mwvc_tpu_torch.models import pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.parallel import mesh_seconds_per_call, place_mesh
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import default_out
 from gnn_mwvc_tpu_torch.tools.scale_bench import sharded_row
 

@@ -27,10 +27,11 @@ import time
 
 import numpy as np
 
+from gnn_mwvc_tpu_torch.graph import resolve_device
 from gnn_mwvc_tpu_torch.graphio import cover_cost, is_vertex_cover
 from gnn_mwvc_tpu_torch.parallel import place_mesh
-from gnn_mwvc_tpu_torch.solver import GnnScorer, ShardedGnnScorer, solve
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
+from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer, solve
+from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 from gnn_mwvc_tpu_torch.tools._common import default_out, road_instance
 
 

@@ -22,10 +22,10 @@ import json
 import numpy as np
 import torch
 
+from gnn_mwvc_tpu_torch.graph import resolve_device
 from gnn_mwvc_tpu_torch.ops.smallsolve import batched_small_mwvc
 from gnn_mwvc_tpu_torch.ops.smallsolve_mitm import (small_mwvc_mitm,
                                                     small_mwvc_mitm_plain)
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.tools._common import default_out, seconds_per_call
 
 

@@ -30,8 +30,8 @@ def main(argv=None):
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
 
+    from gnn_mwvc_tpu_torch.graph import resolve_device
     from gnn_mwvc_tpu_torch.models import save_model
-    from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
     from gnn_mwvc_tpu_torch.train import (TrainConfig, load_training_set,
                                           train)
 

@@ -26,9 +26,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from gnn_mwvc_tpu_torch.graph import resolve_device
 from gnn_mwvc_tpu_torch.models.gnn import (MWVCModel, build_reference_arch,
                                            init_params, matmul_precision)
-from gnn_mwvc_tpu_torch.solver.pipeline import resolve_device
 from gnn_mwvc_tpu_torch.train.data import TrainSample
 
 __all__ = ["TrainConfig", "evaluate", "loss_and_metrics", "train"]

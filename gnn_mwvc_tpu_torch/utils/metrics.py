@@ -24,7 +24,7 @@ forward and the assist's batches such annotations came to 9-14 times the
 device's real busy time (H100, solves of road200 and road300).
 
 ``SolveMetrics`` is what ``solve(..., metrics=)`` fills: one record per
-peel round, the scorer's own stats, and the solve's span totals.
+peel round, the scorer's counts, and the solve's span totals.
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ class SolveMetrics:
         self.rounds.append(RoundRecord(round=len(self.rounds), **kw))
 
     def record_scorer(self, stats: dict):
-        """Scorer-lifecycle stats (sticky rebuilds, uploads, seconds)."""
+        """The scorer's counts (rounds, per-snapshot rounds, rebuilds)."""
         self.scorer_stats = stats
 
     def record_spans(self, spans: dict):

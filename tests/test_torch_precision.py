@@ -137,6 +137,6 @@ def test_sticky_and_sharded_forwards_take_precision(road, precision):
     bufs = [torch.stack([sh.weights, sh.nw, sh.degrees,
                          sh.node_mask.float()]) for sh in sg.shards]
     sticky = [gather_scores(sg, make_sticky_sharded_forward(
-        model, mesh, precision=p)(sg, [b.clone() for b in bufs], None, ws))
+        model, mesh, precision=p)(sg, [b.clone() for b in bufs], ws))
         for p in ("highest", precision)]
     np.testing.assert_array_equal(sticky[0], sticky[1])

@@ -31,8 +31,8 @@ from gnn_mwvc_tpu_torch.core import CoreSolver
 from gnn_mwvc_tpu_torch.graph import Graph
 from gnn_mwvc_tpu_torch.graphio import read_solution, write_metis
 from gnn_mwvc_tpu_torch.parallel import make_mesh
-from gnn_mwvc_tpu_torch.solver import ShardedGnnScorer
 from gnn_mwvc_tpu_torch.solver import pipeline
+from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
 from tests.conftest import random_graph
 

@@ -70,7 +70,8 @@ def test_phase1_timers_and_assist_host_time_are_their_spans():
         assert p1["t_reduce0_s"] == spans["reduce"]["seconds"]
         assert p1["t_score_s"] == spans["score"]["seconds"]
         assert p1["t_peel_s"] == spans["peel"]["seconds"]
-        assert p1["scorer"]["t_cluster_s"] == spans["relabel"]["seconds"]
+        assert spans["relabel"]["calls"] == 1
+        assert spans["relabel"]["seconds"] > 0
     assert res.assist_stats["t_host_s"] == spans["assist"]["seconds"]
 
 

@@ -4,19 +4,30 @@ Two native cores are driven through the same peel: each round both scorers
 score their own core, the JAX side's confidence order peels both, and the
 scores must agree within 1e-5 on the same ids.  Against a fresh forward over
 the compacted snapshot, which sums in another order, the bound is 2e-4.
+Each sticky round's device rows are the core's live rows.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from gnn_mwvc_tpu.core import CoreSolver as JaxCore
 from gnn_mwvc_tpu.solver.pipeline import confidence_order
 from gnn_mwvc_tpu.solver.static_score import StickyGnnScorer as JaxSticky
 from gnn_mwvc_tpu_torch.core import CoreSolver
+from gnn_mwvc_tpu_torch.parallel import make_mesh
 from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer
+from gnn_mwvc_tpu_torch.solver.sharded_score import ShardedGnnScorer
 from gnn_mwvc_tpu_torch.solver.static_score import StickyGnnScorer
 from tests.conftest import random_graph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _drive(gj, rebuild_gadget_frac):
@@ -55,11 +66,11 @@ def _drive(gj, rebuild_gadget_frac):
 def test_sticky_matches_jax_with_gadget_nodes():
     """Folds create gadget nodes after the build; with the rebuild trigger
     out of reach they are scored neutral (0.5) on both sides, and later
-    rounds go through the delta upload."""
+    rounds re-score the first build's rows."""
     rounds, neutral, stats = _drive(bench.build_road_graph(40), 1.0)
     assert rounds >= 2
     assert neutral > 0
-    assert stats["rebuilds"] == 1 and stats["deltas"] > 0
+    assert stats["rebuilds"] == 1 and stats["rounds"] == rounds
 
 
 @pytest.mark.parametrize("name", ["road100", "er1500"])
@@ -104,3 +115,74 @@ def test_sticky_matches_fresh_after_removals():
     assert set(ids_t.tolist()) == set(fresh)
     np.testing.assert_allclose(p_t, [fresh[i] for i in ids_t.tolist()],
                                atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["sticky", "sharded"])
+def test_each_sticky_round_uploads_the_live_rows(kind):
+    """Every sticky round puts the built rows' live (W, NW, D, active) on
+    the device in full: ``core.live_rows(ids)``, which equals the core's
+    flat node arrays at those ids, and zeros in a shard's padding.  The
+    fold gadgets past the build (road40, rebuild out of reach) come back
+    with their live weight and degree and a neutral 0.5."""
+    g = bench.build_road_graph(40)
+    ws = float(g.weights.max())
+    core = CoreSolver(g.weights, g.edge_array())
+    core.reduce()
+    scorer = (StickyGnnScorer(device="cpu", rebuild_gadget_frac=1.0,
+                              force_sticky=True) if kind == "sticky"
+              else ShardedGnnScorer(mesh=make_mesh(2, devices=["cpu"] * 2),
+                                    rebuild_gadget_frac=1.0))
+    uploads = []
+    real = scorer._forward
+
+    def forward(live, weight_scale):
+        uploads.append(torch.cat(live, 1) if isinstance(live, list)
+                       else live)
+        return real(live, weight_scale)
+
+    scorer._forward = forward
+    gadgets = 0
+    while True:
+        core.solve_small_components(75)
+        if core.active_count == 0:
+            break
+        ids, prob, w, deg = scorer.score_core(core, ws)
+        built_ids, built_size = scorer._state[1], scorer._state[2]
+        rows = core.live_rows(built_ids)
+        flat = core.node_arrays()   # (active, w, nw, deg) by node id
+        for a, b in zip(rows, flat):
+            np.testing.assert_array_equal(a, b[built_ids])
+        act, w_b, nw_b, deg_b = rows
+        got = uploads[-1].numpy()
+        np.testing.assert_array_equal(
+            got[:, :len(built_ids)],
+            np.stack([w_b, nw_b, deg_b, act]).astype(np.float32))
+        assert not got[:, len(built_ids):].any()
+        tail = ids >= built_size
+        live_g = built_size + np.nonzero(flat[0][built_size:])[0]
+        np.testing.assert_array_equal(ids[tail], live_g)
+        np.testing.assert_array_equal(w[tail], flat[1][live_g])
+        np.testing.assert_array_equal(deg[tail], flat[3][live_g])
+        assert (prob[tail] == 0.5).all()
+        gadgets += int(tail.sum())
+        order = confidence_order(prob, w, deg)
+        core.reset_label_count()
+        core.peel(ids[order], prob[order].astype(np.float32), -1)
+    assert len(uploads) == scorer.stats["rounds"] >= 2
+    assert scorer.stats["rebuilds"] == 1 and gadgets > 0
+
+
+@pytest.mark.parametrize("module", ["gnn_mwvc_tpu_torch.solver.static_score",
+                                    "gnn_mwvc_tpu_torch.train"])
+def test_scorers_and_training_load_without_the_pipeline(module):
+    """The scorers sit under the pipeline and training beside it: importing
+    either loads no other module of ``solver/``."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "    if m.startswith('gnn_mwvc_tpu_torch.solver.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert loaded == [m for m in [module] if ".solver." in m]
