@@ -16,14 +16,17 @@ the JAX copy's (``CoreSolver.meta_counts`` counts the instances).  Two
 entries are the port's alone: ``capi.cpp``'s ``mwvc_ls_apply_regions``
 applies a whole region batch in one call
 (``CoreLocalSearch.apply_regions``), and ``mwvc_meta_counts`` reads those
-counts.  g++ compiles
+counts.  One header is the port's alone: ``metisio.hpp``, the METIS
+reader's two passes (``mwvc_read_metis``, ``mwvc_metis_csr``; bound here as
+``read_metis_csr``).  g++ compiles
 ``core/src/capi.cpp`` (with the headers beside it) into
 ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
 ``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
 (``core/sanitize.sh`` passes a sanitizer build that way).  These bindings
 cover what the port calls: the kernelisation engine (``CoreSolver``), the
 phase-2 local search (``CoreLocalSearch``), two orderings, the CSR relabel
-behind ``Graph.reorder`` (``relabel_csr``), the threaded CPU forward that
+behind ``Graph.reorder`` (``relabel_csr``), the METIS reader
+(``read_metis_csr``), the threaded CPU forward that
 scores snapshots on the host (``cpu_forward_native``), and the
 constructions and baseline solvers behind the approximation solver, the
 ablation grid and ``mwvc-baseline-torch``.  Not bound: the windowed-MXU
@@ -41,14 +44,16 @@ import numpy as np
 
 __all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
            "bfs_order", "confidence_order_native", "cluster_order",
-           "cpu_forward_native", "improve_cover", "relabel_csr",
-           "approx_cover", "greedy_cover", "baseline_solve", "BASELINE_IDS"]
+           "cpu_forward_native", "improve_cover", "read_metis_csr",
+           "relabel_csr", "approx_cover", "greedy_cover", "baseline_solve",
+           "BASELINE_IDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "core", "src")
 LIB_PATH = os.path.join(_PKG, "_build", "libmwvc_core.so")
 _SOURCES = ("capi.cpp", "revgraph.hpp", "solver.hpp", "localsearch.hpp",
-            "heuristics.hpp", "baselines.hpp", "cpuforward.hpp")
+            "heuristics.hpp", "baselines.hpp", "cpuforward.hpp",
+            "metisio.hpp")
 _GXX_FLAGS = ["-std=c++17", "-O3", "-march=native", "-DNDEBUG", "-fPIC",
               "-shared"]
 _LOCK = threading.Lock()
@@ -57,6 +62,7 @@ _lib = None
 u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -95,6 +101,10 @@ _SIGNATURES = {
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
                            None),
     "mwvc_relabel_csr": ([ct.c_uint32, u64p, u32p, u32p, u64p, u32p], None),
+    "mwvc_read_metis": ([u8p, ct.c_uint64, ct.c_uint64, i64p, u64p, i64p,
+                         u64p], ct.c_int),
+    "mwvc_metis_csr": ([ct.c_uint64, u64p, i64p, ct.c_uint64, i64p, i64p],
+                       None),
     "mwvc_cpu_forward": ([ct.c_uint32, u64p, u32p, u32p, u64p, u32p,
                           ct.c_float, ct.c_uint32, i8p, i32p, f32p, f32p,
                           ct.c_uint32], None),
@@ -592,6 +602,36 @@ def relabel_csr(indptr, indices, perm):
     out_indices = np.empty(len(indices), dtype=np.uint32)
     lib.mwvc_relabel_csr(n, indptr, indices, perm, out_indptr, out_indices)
     return out_indptr.astype(np.int64), out_indices.astype(np.int64)
+
+
+_METIS_ERRORS = {1: "METIS vertex line {} has no weight token",
+                 2: "METIS body has non-integer tokens (line {} of the body)",
+                 3: "METIS vertex line {} names a neighbour beyond the "
+                    "header's vertex count"}
+
+
+def read_metis_csr(data, start, n):
+    """The canonical symmetric CSR of a METIS file whose vertex lines start
+    at ``data[start]`` (``metisio.hpp``): ``(weights, indptr, indices,
+    rows_sorted)``, the arrays int64, ``rows_sorted`` the vertex lines whose
+    kept neighbours had to be sorted or deduplicated.  Raises ValueError,
+    with the line, on a vertex line without a token (or missing), a token
+    that is not an integer, or a neighbour beyond the n vertices."""
+    lib = _load()
+    body = np.frombuffer(data, np.uint8, offset=start)
+    weights = np.empty(n, dtype=np.int64)
+    up_count = np.empty(n, dtype=np.uint64)
+    upper = np.empty((len(body) + 1) // 2, dtype=np.int64)  # one per token
+    out = np.zeros(3, dtype=np.uint64)
+    status = lib.mwvc_read_metis(body, len(body), n, weights, up_count, upper,
+                                 out)
+    if status:
+        raise ValueError(_METIS_ERRORS[status].format(int(out[2])))
+    kept = int(out[0])
+    indptr = np.empty(n + 1, dtype=np.int64)
+    indices = np.empty(2 * kept, dtype=np.int64)
+    lib.mwvc_metis_csr(n, up_count, upper, kept, indptr, indices)
+    return weights, indptr, indices, int(out[1])
 
 
 _KIND_CODES = {"graph": 0, "linear": 1, "relu": 2, "sigmoid": 3}

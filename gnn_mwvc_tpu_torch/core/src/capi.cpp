@@ -4,6 +4,7 @@
 #include "cpuforward.hpp"
 #include "heuristics.hpp"
 #include "localsearch.hpp"
+#include "metisio.hpp"
 #include "solver.hpp"
 
 using namespace mwvc;
@@ -723,6 +724,18 @@ void mwvc_relabel_csr(u32 n, const u64 *indptr, const u32 *indices,
         std::sort(out_indices + base, out_indices + base + (hi - lo));
         out_indptr[i + 1] = base + (hi - lo);
     }
+}
+
+// METIS files (metisio.hpp): pass 1 over a file's body, then the CSR of the
+// upper entries it kept.
+int mwvc_read_metis(const char *body, u64 len, u64 n, i64 *weights,
+                    u64 *up_count, i64 *upper, u64 *out3) {
+    return metis_upper(body, len, n, weights, up_count, upper, out3);
+}
+
+void mwvc_metis_csr(u64 n, const u64 *up_count, const i64 *upper, u64 kept,
+                    i64 *indptr, i64 *indices) {
+    metis_csr(n, up_count, upper, kept, indptr, indices);
 }
 
 // ---- standalone heuristics ------------------------------------------------

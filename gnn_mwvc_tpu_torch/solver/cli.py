@@ -23,7 +23,8 @@ phase 1 scores each round's snapshot with ``GnnScorer`` on ``--device``, as
 ``--json`` prints one object: the result, ``phase1`` (the solve's split and
 spans) and ``cli_spans``, the command line's own spans as ``{name:
 {"seconds", "calls"}}``: ``read`` (``read_metis``) and ``output`` (the
-cover's check, its cost and ``write_solution``).
+cover's check, its cost and ``write_solution``); and ``read_rows_sorted``,
+the vertex lines of the file that the reader had to sort or deduplicate.
 """
 
 from __future__ import annotations
@@ -94,9 +95,10 @@ def _run(args, mesh, rec):
     from gnn_mwvc_tpu_torch.utils.metrics import span
 
     name = os.path.splitext(os.path.basename(args.graph))[0]
+    read_stats = {}
     try:
         with span("read"):
-            g = read_metis(args.graph)
+            g = read_metis(args.graph, read_stats)
     except OSError as e:
         print(f"Error opening graph file: {e}")
         return 1
@@ -140,6 +142,7 @@ def _run(args, mesh, rec):
             "counters": res.counters.tolist(), "ls_steps": res.ls_steps,
             "phase1": res.phase1, "assist": res.assist_stats,
             "device": args.device, "cli_spans": rec.as_dict(),
+            "read_rows_sorted": read_stats["rows_sorted"],
         }))
     elif verbose:
         print(f"Vertex cover cost: {res.cost}, found in "

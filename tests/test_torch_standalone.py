@@ -1,8 +1,9 @@
 """The port stands on its own: it builds its native core from its own copy
-of the sources, loads its own copy of the pretrained weights and solves in
-a directory that holds no JAX package; the copies equal the JAX package's
-files, but for the one repair in ``localsearch.hpp``, which an ASan build
-of the port's core holds to.
+of the sources, loads its own copy of the pretrained weights, reads a METIS
+file and solves in a directory that holds no JAX package; the copies equal
+the JAX package's files, but for the repairs and additions listed below
+(the repair in ``localsearch.hpp`` held to by an ASan build of the port's
+core) and the port's own METIS reader, ``metisio.hpp``.
 """
 
 import json
@@ -29,8 +30,10 @@ JAX_PKG = os.path.join(REPO, "gnn_mwvc_tpu")
 # (revgraph.hpp, solver.hpp, capi.cpp); by the meta rules' weight bounds,
 # which decide as the JAX copy's rules do, and their counts (solver.hpp,
 # capi.cpp); and by one addition, the entry that applies a whole region
-# batch in one call (capi.cpp).  Per file, each entry is the JAX copy's
-# text and the first and last lines of the port's text in its place.
+# batch in one call (capi.cpp), and the METIS reader's two passes (capi.cpp
+# over ``PORT_ONLY``'s metisio.hpp, which the JAX package does not have).
+# Per file, each entry is the JAX copy's text and the first and last lines
+# of the port's text in its place.
 REPAIRS = {
     "localsearch.hpp": [
         ("", "    //\n    // This copy differs", "before anything is written.\n"),
@@ -93,18 +96,29 @@ REPAIRS = {
          "    out3[2] = s->meta_solved;\n}\n"),
         ("", "\n// A finished region batch applied in one call",
          "    *out_wide = wide;\n    return applied;\n}\n"),
+        ("", '#include "metisio.hpp"\n', '#include "metisio.hpp"\n'),
+        ("", "\n// METIS files (metisio.hpp)",
+         "    metis_csr(n, up_count, upper, kept, indptr, indices);\n}\n"),
     ],
 }
+PORT_ONLY = ("metisio.hpp",)
 
 STANDALONE = """
 import importlib.util, json, sys
+import numpy as np
 from gnn_mwvc_tpu_torch.core import api
 from gnn_mwvc_tpu_torch.graph import build_road_graph
+from gnn_mwvc_tpu_torch.graphio import read_metis, write_metis
 from gnn_mwvc_tpu_torch.models import pretrained_model, serialize
 from gnn_mwvc_tpu_torch.solver.pipeline import solve
-res = solve(build_road_graph(60), pretrained_model("cpu"), time_limit=0,
-            device="cpu")
+write_metis("road60.metis", build_road_graph(60))
+g, stats = build_road_graph(60), {}
+h = read_metis("road60.metis", stats)
+res = solve(h, pretrained_model("cpu"), time_limit=0, device="cpu")
 print(json.dumps({
+    "read_back": all(np.array_equal(getattr(h, f), getattr(g, f))
+                     for f in ("weights", "indptr", "indices")),
+    "rows_sorted": stats["rows_sorted"],
     "cost": int(res.cost), "solution": [int(v) for v in res.solution],
     "src_dir": api.SRC_DIR, "lib": api.LIB_PATH,
     "pretrained": serialize.PRETRAINED_PATH,
@@ -116,8 +130,9 @@ print(json.dumps({
 
 def test_port_builds_loads_and_solves_without_the_jax_package(tmp_path):
     """A copy of ``gnn_mwvc_tpu_torch/`` (without its build directory),
-    alone on the path, builds the core from its own sources and finds the
-    same phase-1 cover of road60 as the package in the repository."""
+    alone on the path, builds the core from its own sources, reads road60
+    back from a METIS file through it and finds the same phase-1 cover of
+    it as the package in the repository."""
     root = tmp_path.resolve()
     shutil.copytree(PORT, root / "gnn_mwvc_tpu_torch", ignore=shutil.
                     ignore_patterns("_build", "__pycache__"))
@@ -133,6 +148,7 @@ def test_port_builds_loads_and_solves_without_the_jax_package(tmp_path):
         assert rec[key].startswith(copy + os.sep), (key, rec[key])
     assert os.path.exists(rec["lib"])
     assert not rec["jax_package"] and rec["loaded"] == []
+    assert rec["read_back"] and rec["rows_sorted"] == 0
 
     g = build_road_graph(60)
     here = solve(g, time_limit=0, device="cpu")
@@ -176,12 +192,17 @@ def test_weights_file_equals_the_jax_package_copy():
 def test_core_sources_equal_the_jax_package_copy(name):
     """Every source the core is built from is the JAX package's, byte for
     byte, but for the repairs, bounds and additions of ``REPAIRS``: with
-    each entry's text put back to the JAX copy's, the file is the JAX copy."""
+    each entry's text put back to the JAX copy's, the file is the JAX copy.
+    The files of ``PORT_ONLY`` are the port's alone."""
     assert api.SRC_DIR == os.path.join(PORT, "core", "src")
     assert sorted(os.listdir(api.SRC_DIR)) == sorted(api._SOURCES)
+    theirs_path = os.path.join(JAX_PKG, "core", "src", name)
+    if name in PORT_ONLY:
+        assert not os.path.exists(theirs_path) and name not in REPAIRS
+        return
     with open(os.path.join(api.SRC_DIR, name)) as f:
         mine = f.read()
-    with open(os.path.join(JAX_PKG, "core", "src", name)) as f:
+    with open(theirs_path) as f:
         theirs = f.read()
     for before, first, last in REPAIRS.get(name, ()):
         assert mine.count(first) == 1, first
