@@ -89,6 +89,8 @@ class SolveResult:
     initial_cost: int           # cost paid by the initial reductions
     counters: np.ndarray        # rule-fire counters r1..r8
     ls_steps: int = 0
+    # DeviceAssist.stats and best_gain, the best cover's drops at the
+    # assist's commits (the rest of phase 2's fall is the search's)
     assist_stats: Optional[dict] = None
     # phase-1 split: t_reduce0_s, t_score_s, t_peel_s, rounds,
     # live_after_reduce0 (the vertices the initial reduction left), the
@@ -96,8 +98,10 @@ class SolveResult:
     # core refused), the meta rules' meta_evals, meta_bound_decided and
     # meta_solved (core.meta_counts) and kernel_edges_uncovered, the vertices
     # cover_uncovered_edges added (0 where nothing is left to cover);
-    # "spans": every span of the solve, phase 2's too, as
-    # {name: {"seconds", "calls"}} (utils/metrics.py)
+    # phase2_start_cost, the full cover's cost when phase 2 starts (absent
+    # where phase 1 left no budget to search); "spans": every span of the
+    # solve, phase 2's too, as {name: {"seconds", "calls"}}
+    # (utils/metrics.py)
     phase1: Optional[dict] = None
 
 
@@ -281,7 +285,8 @@ def solve(
         kick_bias = None
         if device_assist == "auto":
             device_assist = device.type == "cuda"
-        assisted = device_assist and time_gnn < time_limit
+        searched = time_gnn < time_limit  # phase 1 left budget to search
+        assisted = device_assist and searched
         with span("handoff", launches=assisted):
             snap = core.snapshot()
             rows = np.repeat(np.arange(snap.n, dtype=np.int64),
@@ -295,6 +300,8 @@ def solve(
             split["kernel_edges_uncovered"] = cover_uncovered_edges(
                 s0, kedges, snap.weights)
             ls = CoreLocalSearch(snap.weights, kedges, s0)
+            if searched:
+                split["phase2_start_cost"] = ls.cost + initial_cost
             if assisted:
                 from gnn_mwvc_tpu_torch.solver.device_assist import (
                     DeviceAssist)
@@ -318,6 +325,7 @@ def solve(
         kicks = 0
         k_cur = ls_ils_k
         best_at_kick = 1 << 62
+        best_gain = 0
         while time_gnn + (time.perf_counter() - t2) < time_limit:
             remaining = time_limit - time_gnn - (time.perf_counter() - t2)
             with span("search"):
@@ -354,9 +362,13 @@ def solve(
                         _kick(ls, k_cur, ls_seed + kicks, kick_bias)
                         step_size = 1 << 16
             if assist is not None:
-                prev_best = ls.best_cost
+                prev_best, prev_cost = ls.best_cost, ls.cost
                 assist.tick(ls)
                 if ls.best_cost < prev_best:
+                    # the assist's part of phase 2's fall: the best cover's
+                    # drop at its commit, at most its patches' own drop
+                    best_gain += min(prev_best - ls.best_cost,
+                                     prev_cost - ls.cost)
                     t_best = time.perf_counter()
                     if verbose:
                         print(f"{time_gnn + (t_best - t2):.2f},"
@@ -368,7 +380,8 @@ def solve(
             sol, cost, min(best_seen + initial_cost, cost),
             time_gnn + (t_best - t2), time_gnn, time.perf_counter() - t_start,
             kernel_size, initial_cost, counters, ls_steps=steps,
-            assist_stats=dict(assist.stats) if assist is not None else None,
+            assist_stats=(dict(assist.stats, best_gain=best_gain)
+                          if assist is not None else None),
             phase1=split)
 
 
