@@ -23,8 +23,16 @@ phase 1 scores each round's snapshot with ``GnnScorer`` on ``--device``, as
 ``--json`` prints one object: the result, ``phase1`` (the solve's split and
 spans) and ``cli_spans``, the command line's own spans as ``{name:
 {"seconds", "calls"}}``: ``read`` (``read_metis``) and ``output`` (the
-cover's check, its cost and ``write_solution``); and ``read_rows_sorted``,
-the vertex lines of the file that the reader had to sort or deduplicate.
+cover's check, its cost and ``write_solution``); ``read_rows_sorted``,
+the vertex lines of the file that the reader had to sort or deduplicate;
+and ``relabel``: ``{"applied", "gap_share"}``.
+
+The solve relabels the graph in the clustered order (``solve(...,
+reorder=True)``, its span ``relabel`` in ``phase1["spans"]``) when the
+file's ids lack locality (``pipeline.ids_lack_locality``: at least 2^16
+vertices and a sampled median |u - v| over n / 64, its share of n being
+``gap_share``), as on a generated graph whose ids follow the generator
+rather than the geometry; the cover is written in the file's ids.
 """
 
 from __future__ import annotations
@@ -90,7 +98,8 @@ def _run(args, mesh, rec):
     from gnn_mwvc_tpu_torch.graphio import (cover_cost, is_vertex_cover,
                                             read_metis, write_solution)
     from gnn_mwvc_tpu_torch.models import MWVCModel, load_model
-    from gnn_mwvc_tpu_torch.solver.pipeline import GnnScorer, solve
+    from gnn_mwvc_tpu_torch.solver.pipeline import (GnnScorer,
+                                                    ids_lack_locality, solve)
     from gnn_mwvc_tpu_torch.solver.quick import QuickScorer
     from gnn_mwvc_tpu_torch.utils.metrics import span
 
@@ -118,9 +127,12 @@ def _run(args, mesh, rec):
         scorer = ShardedGnnScorer(model, mesh=mesh)
     else:  # per-snapshot scoring, as gnn-vc (solve()'s default is sticky)
         scorer = GnnScorer(model, device=args.device)
+    # the clustered relabel where the file's ids lack locality; the cover
+    # comes back in the file's ids
+    relabel, gap_share = ids_lack_locality(g)
     res = solve(g, model=model, time_limit=args.time,
                 relable_interval=args.k, verbose=verbose, device=args.device,
-                scorer=scorer,
+                scorer=scorer, reorder=relabel,
                 device_assist=("auto" if args.device_assist is None
                                else args.device_assist))
 
@@ -143,6 +155,7 @@ def _run(args, mesh, rec):
             "phase1": res.phase1, "assist": res.assist_stats,
             "device": args.device, "cli_spans": rec.as_dict(),
             "read_rows_sorted": read_stats["rows_sorted"],
+            "relabel": {"applied": relabel, "gap_share": gap_share},
         }))
     elif verbose:
         print(f"Vertex cover cost: {res.cost}, found in "

@@ -39,9 +39,39 @@ from gnn_mwvc_tpu_torch.solver.static_score import GnnScorer, StickyGnnScorer
 from gnn_mwvc_tpu_torch.utils.metrics import recording, span
 
 __all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
-           "cover_uncovered_edges", "gnn_peel", "resolve_device", "solve"]
+           "cover_uncovered_edges", "gnn_peel", "ids_lack_locality",
+           "resolve_device", "solve"]
 
 CONF_EPS = 1e-4  # confidence tie width (the reference's GNN_VC.cpp:196)
+
+# ids_lack_locality's gate.  Under 2^16 vertices the command line keeps the
+# file's ids, so that its covers stay those of the reference ``gnn-vc``,
+# which never relabels, bit for bit; the relabel would save at most a few
+# tenths of a second there (rgg at 2^15 on an 8-core CPU host: a time-0
+# solve 0.63-0.85 s in file order, 0.45-0.63 s relabelled).  The gap share
+# is ~0.29 on rgg in generation order, ~n^-0.5 on a grid-order road graph
+# and under 0.003 on rgg in any spatial order: 10-20x either side of 1/64
+# at the benchmark's sizes
+LOCALITY_MIN_N = 1 << 16
+LOCALITY_GAP_DIV = 64
+LOCALITY_SAMPLE = 1 << 16
+
+
+def ids_lack_locality(g: Graph) -> tuple:
+    """(relabel?, gap share): the median |u - v| over a fixed strided sample
+    of at most ``LOCALITY_SAMPLE`` directed CSR entries, as a share of n;
+    relabel when ``g`` has at least ``LOCALITY_MIN_N`` vertices and that
+    median exceeds n / ``LOCALITY_GAP_DIV``.  On such ids the core's
+    reduction rules miss the cache at every neighbour, and
+    ``solve(reorder=True)``'s clustered order cures that."""
+    nnz = len(g.indices)
+    if nnz == 0:
+        return False, 0.0
+    pos = np.arange(0, nnz, max(1, nnz // LOCALITY_SAMPLE))[:LOCALITY_SAMPLE]
+    rows = np.searchsorted(g.indptr, pos, side="right") - 1
+    gap = float(np.median(np.abs(rows - g.indices[pos])))
+    return (g.n >= LOCALITY_MIN_N and gap * LOCALITY_GAP_DIV > g.n,
+            gap / g.n)
 
 
 def confidence_order(prob: np.ndarray, weights: np.ndarray,
