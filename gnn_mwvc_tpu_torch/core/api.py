@@ -12,15 +12,16 @@ the JAX copy's sorted merge can pass a dependent N(u)); the refused folds
 are counted (``CoreSolver.dependent_folds``).  In ``solver.hpp`` the two
 meta rules first test exact weight bounds, and build and solve their small
 instance only where the bounds leave the outcome open: every decision is
-the JAX copy's (``CoreSolver.meta_counts`` counts the instances).  Two
-entries are the port's alone: ``capi.cpp``'s ``mwvc_ls_apply_regions``
-applies a whole region batch in one call
-(``CoreLocalSearch.apply_regions``), and ``mwvc_meta_counts`` reads those
-counts.  One header is the port's alone: ``metisio.hpp``, the METIS
-reader's two passes (``mwvc_read_metis``, ``mwvc_metis_csr``; bound here as
-``read_metis_csr``).  g++ compiles
-``core/src/capi.cpp`` (with the headers beside it) into
-``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
+the JAX copy's (``CoreSolver.meta_counts`` counts the instances).  Each
+solver also keeps a profile of where its time goes, by rule
+(``CoreSolver.profile``).  Three entries are the port's alone:
+``capi.cpp``'s ``mwvc_ls_apply_regions`` applies a whole region batch in
+one call (``CoreLocalSearch.apply_regions``), ``mwvc_meta_counts`` reads
+those counts and ``mwvc_profile`` that profile.  One header is the port's
+alone: ``metisio.hpp``, the METIS reader's two passes
+(``mwvc_read_metis``, ``mwvc_metis_csr``; bound here as
+``read_metis_csr``).  g++ compiles ``core/src/capi.cpp`` (with the headers
+beside it) into ``gnn_mwvc_tpu_torch/_build/libmwvc_core.so`` at first use;
 ``MWVC_CORE_LIB`` names a library to load instead, and then nothing is built
 (``core/sanitize.sh`` passes a sanitizer build that way).  These bindings
 cover what the port calls: the kernelisation engine (``CoreSolver``), the
@@ -42,7 +43,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["CoreSolver", "CoreLocalSearch", "Snapshot",
+__all__ = ["CoreSolver", "CoreLocalSearch", "PROFILE_RULES", "Snapshot",
            "bfs_order", "confidence_order_native", "cluster_order",
            "cpu_forward_native", "improve_cover", "read_metis_csr",
            "relabel_csr", "approx_cover", "greedy_cover", "baseline_solve",
@@ -58,6 +59,17 @@ _GXX_FLAGS = ["-std=c++17", "-O3", "-march=native", "-DNDEBUG", "-fPIC",
               "-shared"]
 _LOCK = threading.Lock()
 _lib = None
+
+# The seven local rules in the core's enum order, as CoreSolver.profile
+# names them
+PROFILE_RULES = ("neighborhood", "twin", "domination", "isolated",
+                 "independent_fold", "neighbor_meta", "neighborhood_meta")
+# mwvc_profile's entries after the rules' (evals, fires, ns) triples
+_PROFILE_TAIL = ("critical.calls", "critical.live", "critical.ns",
+                 "select.calls", "select.ns", "components.calls",
+                 "components.ns", "exact.calls", "exact.ns")
+_PROFILE_KEYS = tuple(f"{r}.{k}" for r in PROFILE_RULES
+                      for k in ("evals", "fires", "ns")) + _PROFILE_TAIL
 
 u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -96,6 +108,7 @@ _SIGNATURES = {
     "mwvc_mistakes_from_model": ([_c], ct.c_uint64),
     "mwvc_dependent_folds": ([_c], ct.c_uint64),
     "mwvc_meta_counts": ([_c, u64p], None),
+    "mwvc_profile": ([_c, u64p, ct.c_uint32], ct.c_uint32),
     "mwvc_neighbors_independent": ([_c, ct.c_uint32, ct.c_int], ct.c_int),
     "mwvc_bfs_order": ([ct.c_uint32, u64p, u32p, u32p], None),
     "mwvc_cluster_order": ([ct.c_uint32, u64p, u32p, ct.c_uint32, u32p],
@@ -393,6 +406,25 @@ class CoreSolver:
         self._lib.mwvc_meta_counts(self._h, out)
         return dict(zip(("meta_evals", "meta_bound_decided", "meta_solved"),
                         (int(x) for x in out)))
+
+    @property
+    def profile(self):
+        """Where the core's time went over this solver's life, always kept
+        (``solver.hpp``'s ``Profile``), as integers: per rule of
+        ``PROFILE_RULES``, ``<rule>.evals`` (live pops that reached it),
+        ``<rule>.fires`` and ``<rule>.ns`` (nanoseconds on its worklist);
+        ``critical.calls``, ``critical.live`` (live vertices summed over the
+        calls) and ``critical.ns`` of ``rule_critical_weight``;
+        ``select.calls`` and ``select.ns``, the peel's own decisions;
+        ``components.calls`` and ``components.ns`` of
+        ``solve_small_components``, and within them ``exact.calls`` and
+        ``exact.ns``, the components solved exactly."""
+        out = np.zeros(len(_PROFILE_KEYS), dtype=np.uint64)
+        count = self._lib.mwvc_profile(self._h, out, len(out))
+        if count != len(out):
+            raise RuntimeError(f"the core's profile has {count} entries, "
+                               f"the bindings read {len(out)}")
+        return dict(zip(_PROFILE_KEYS, (int(x) for x in out)))
 
     def neighbors_independent(self, u, exact=True):
         """Whether no two live neighbours of ``u`` are adjacent: the

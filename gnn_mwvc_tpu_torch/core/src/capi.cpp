@@ -337,6 +337,29 @@ void mwvc_meta_counts(void *h, u64 *out3) {
     out3[2] = s->meta_solved;
 }
 
+// The solver's profile (solver.hpp's Profile) over its life, in this order:
+// per local rule in enum order its evaluations, fires and nanoseconds;
+// rule_critical_weight's calls, live vertices summed and nanoseconds;
+// peel()'s decisions and nanoseconds; solve_small_components' calls and
+// nanoseconds, and its exact solves' count and nanoseconds.  Writes the
+// first min(len, count) entries to out and returns the count.
+u32 mwvc_profile(void *h, u64 *out, u32 len) {
+    const Profile &p = ((Solver *)h)->prof;
+    u64 all[3 * NUM_LOCAL_RULES + 9];
+    u32 k = 0;
+    for (u32 r = 0; r < NUM_LOCAL_RULES; ++r) {
+        all[k++] = p.evals[r];
+        all[k++] = p.fires[r];
+        all[k++] = p.rule_ns[r];
+    }
+    for (u64 x : {p.critical_calls, p.critical_live, p.critical_ns,
+                  p.select_calls, p.select_ns, p.components_calls,
+                  p.components_ns, p.exact_calls, p.exact_ns})
+        all[k++] = x;
+    std::memcpy(out, all, std::min(len, k) * sizeof(u64));
+    return k;
+}
+
 void mwvc_unfold(void *h, u64 t) { ((Solver *)h)->unfold(t); }
 
 // Non-destructive full-solution preview: deep-copy the solver (RevGraph is

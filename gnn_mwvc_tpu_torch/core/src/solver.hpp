@@ -161,6 +161,31 @@ struct Counters {
     u64 r[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 };
 
+// Where a Solver's time goes, always kept (read through capi.cpp's
+// mwvc_profile).  Per local rule, in enum order: the pops of a live vertex
+// that reach it, those on which it fired, and the nanoseconds spent on its
+// worklist (skipped pops, the test, and a firing rule's surgery and
+// re-queue).  reduce() reads the clock only where it starts on another
+// non-empty worklist and where the cascade ends, never per evaluation.
+// Then rule_critical_weight's calls, live vertices summed over them and
+// nanoseconds; peel()'s own decisions; solve_small_components' calls and
+// nanoseconds, of which its exact solves (medium_solve: a child Solver's
+// work counts there and in no rule).
+struct Profile {
+    u64 evals[NUM_LOCAL_RULES] = {}, fires[NUM_LOCAL_RULES] = {},
+        rule_ns[NUM_LOCAL_RULES] = {};
+    u64 critical_calls = 0, critical_live = 0, critical_ns = 0;
+    u64 select_calls = 0, select_ns = 0;
+    u64 components_calls = 0, components_ns = 0;
+    u64 exact_calls = 0, exact_ns = 0;
+};
+
+inline u64 now_ns() {
+    return (u64)std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
+}
+
 // Per-rule worklists with "visited" re-queue semantics
 // (reference: mwvc_reductions.hpp:32-71).
 struct Worklists {
@@ -221,6 +246,7 @@ class Solver {
     // their weight bounds decide (no instance built) and those solved.
     u64 meta_evals = 0, meta_bound_decided = 0, meta_solved = 0;
     std::vector<u32> meta_tmp;  // rule_neighbor_meta's N(v) \ N[u]
+    Profile prof;  // where the time goes (Profile)
 
     // ---- device bulk-apply support (solver/device_reduce.py) -----------
     // Device rule masks are computed on a snapshot; during the bulk-apply
@@ -548,14 +574,24 @@ class Solver {
         do {
             critical = false;
             u32 rule = 0;
+            u32 timed = NUM_LOCAL_RULES;  // the worklist the clock runs for
+            u64 t0 = 0;
             while (rule < wl.nrules) {
                 if (wl.stack[rule].empty()) {
                     rule++;
                     continue;
                 }
+                if (rule != timed) {
+                    u64 t = now_ns();
+                    if (timed < NUM_LOCAL_RULES)
+                        prof.rule_ns[timed] += t - t0;
+                    timed = rule;
+                    t0 = t;
+                }
                 u32 u = wl.pop(rule);
                 if (u >= g.size() || !g.active[u] || g.deg[u] > DEGREE_SKIP)
                     continue;
+                prof.evals[rule]++;
                 bool found = false;
                 switch (rule) {
                 case 0: found = rule_neighborhood(u); break;
@@ -566,11 +602,20 @@ class Solver {
                 case 5: found = rule_neighbor_meta(u); break;
                 case 6: found = rule_neighborhood_meta(u); break;
                 }
-                if (found)
+                if (found) {
+                    prof.fires[rule]++;
                     rule = 0;
+                }
             }
-            if (do_critical)
+            if (timed < NUM_LOCAL_RULES)
+                prof.rule_ns[timed] += now_ns() - t0;
+            if (do_critical) {
+                u64 t = now_ns();
+                prof.critical_calls++;
+                prof.critical_live += g.n_active;
                 critical = rule_critical_weight();
+                prof.critical_ns += now_ns() - t;
+            }
         } while (critical);
     }
 
@@ -653,6 +698,7 @@ class Solver {
                 j++;
                 i++;
             } else if (g.active[u]) {
+                u64 t = now_ns();
                 if (use_gnn && use_red) {
                     if (model_in) {
                         select_node(u);
@@ -665,6 +711,8 @@ class Solver {
                     labels_from_model += g.deg[u] + 1;
                     select_neighborhood(u);
                 }
+                prof.select_calls++;
+                prof.select_ns += now_ns() - t;
                 i++;
                 if (use_red)
                     reduce(g.n_active < CRITICAL_LIMIT);
@@ -795,6 +843,7 @@ inline void medium_solve(Solver &parent, std::vector<u32> &nodes) {
 }
 
 inline u32 Solver::solve_small_components(u32 limit) {
+    u64 t_call = now_ns();
     u32 n = g.size();
     std::vector<uint8_t> visited(n, 0);
     std::vector<u32> comp, dfs;
@@ -818,9 +867,15 @@ inline u32 Solver::solve_small_components(u32 limit) {
             }
         }
         res++;
-        if (comp.size() < limit)
+        if (comp.size() < limit) {
+            u64 t = now_ns();
             medium_solve(*this, comp);
+            prof.exact_calls++;
+            prof.exact_ns += now_ns() - t;
+        }
     }
+    prof.components_calls++;
+    prof.components_ns += now_ns() - t_call;
     return res;
 }
 

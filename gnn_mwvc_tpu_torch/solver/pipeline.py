@@ -19,6 +19,7 @@ is the port's own copy of the C++ core (core/src/).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -26,6 +27,7 @@ from typing import Optional
 import numpy as np
 
 from gnn_mwvc_tpu_torch.core import (
+    PROFILE_RULES,
     CoreLocalSearch,
     CoreSolver,
     cluster_order,
@@ -36,7 +38,7 @@ from gnn_mwvc_tpu_torch.graphio import cover_cost
 from gnn_mwvc_tpu_torch.models import MWVCModel, pretrained_model, score_graph
 from gnn_mwvc_tpu_torch.solver.checkpoint import save_checkpoint
 from gnn_mwvc_tpu_torch.solver.static_score import GnnScorer, StickyGnnScorer
-from gnn_mwvc_tpu_torch.utils.metrics import recording, span
+from gnn_mwvc_tpu_torch.utils.metrics import record, recording, span
 
 __all__ = ["CONF_EPS", "GnnScorer", "SolveResult", "confidence_order",
            "cover_uncovered_edges", "gnn_peel", "ids_lack_locality",
@@ -126,13 +128,49 @@ class SolveResult:
     # live_after_reduce0 (the vertices the initial reduction left), the
     # scorer's counts under "scorer", dependent_folds (the folds the
     # core refused), the meta rules' meta_evals, meta_bound_decided and
-    # meta_solved (core.meta_counts) and kernel_edges_uncovered, the vertices
-    # cover_uncovered_edges added (0 where nothing is left to cover);
+    # meta_solved (core.meta_counts), "core_counts" (per rule its fires in
+    # the reduce and the peel, "<span>.<rule>.fires", and the live vertices
+    # summed over the critical-weight calls, "<span>.critical.live") and
+    # kernel_edges_uncovered, the vertices cover_uncovered_edges added (0
+    # where nothing is left to cover);
     # phase2_start_cost, the full cover's cost when phase 2 starts (absent
     # where phase 1 left no budget to search); "spans": every span of the
     # solve, phase 2's too, as {name: {"seconds", "calls"}}
     # (utils/metrics.py)
     phase1: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def _core_children(core: CoreSolver, parent: str, counts: dict):
+    """The core's profile (``CoreSolver.profile``) over the block, as
+    children of the span ``parent`` that runs it: under ``reduce`` and
+    ``peel``, ``<parent>.<rule>`` (seconds on the rule's worklist, a call
+    per evaluation) and ``<parent>.critical`` (a call per critical-weight
+    flow), and under ``peel`` also ``peel.select`` (a call per decision);
+    under ``components``, ``components.scan`` (a call per search, the
+    exact solves' seconds left out) and ``components.exact`` (a call per
+    component solved exactly).  The rules' fires and the flows' live
+    vertices go to ``counts``."""
+    before = core.profile
+    yield
+    d = {k: v - before[k] for k, v in core.profile.items()}
+    if parent == "components":
+        children = {"scan": (d["components.ns"] - d["exact.ns"],
+                             d["components.calls"]),
+                    "exact": (d["exact.ns"], d["exact.calls"])}
+    else:
+        children = {r: (d[f"{r}.ns"], d[f"{r}.evals"]) for r in PROFILE_RULES}
+        children["critical"] = (d["critical.ns"], d["critical.calls"])
+        if parent == "peel":
+            children["select"] = (d["select.ns"], d["select.calls"])
+        for r in PROFILE_RULES:
+            key = f"{parent}.{r}.fires"
+            counts[key] = counts.get(key, 0) + d[f"{r}.fires"]
+        key = f"{parent}.critical.live"
+        counts[key] = counts.get(key, 0) + d["critical.live"]
+    for name, (ns, calls) in children.items():
+        if ns or calls:
+            record(f"{parent}.{name}", ns * 1e-9, calls)
 
 
 def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
@@ -145,18 +183,22 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
     deg)`` over the live nodes, and ``scorer.stats``, a dict of counts
     (``solver/static_score.py``).
     Spans: ``reduce``, then per round ``components``, ``score``, ``order``
-    and ``peel``; the split's timers are their seconds.
+    and ``peel``; the split's timers are their seconds.  The core's
+    profile splits ``reduce``, ``components`` and ``peel`` into children
+    (``_core_children``).
     """
-    with span("reduce") as sp:
+    counts = {}
+    with span("reduce") as sp, _core_children(core, "reduce", counts):
         core.reduce()
     split = {"t_reduce0_s": sp.seconds, "t_score_s": 0.0,
              "t_peel_s": 0.0, "rounds": 0,
-             "live_after_reduce0": core.active_count}
+             "live_after_reduce0": core.active_count,
+             "core_counts": counts}
     t_kernel = None
     kernel_size = 0
     initial_cost = 0
     while core.active_count > 0:
-        with span("components"):
+        with span("components"), _core_children(core, "components", counts):
             core.solve_small_components(component_limit)
         if t_kernel is None:
             t_kernel = core.timestamp
@@ -174,7 +216,7 @@ def gnn_peel(core: CoreSolver, scorer, weight_scale: float,
             print(f"Remaining nodes: {core.active_count}", end="\r",
                   flush=True)
         n_before = core.active_count
-        with span("peel") as peel:
+        with span("peel") as peel, _core_children(core, "peel", counts):
             core.peel(ids[order], prob[order].astype(np.float32),
                       relable_interval)
         split["t_score_s"] += score.seconds

@@ -6,7 +6,9 @@ installs a ``SpanRecorder`` for its duration (``recording()``, through a
 context variable), so every span opened inside it, in the scorer and the
 assist too, adds its seconds and one call to that solve's totals, which
 ``solve()`` returns as ``SolveResult.phase1["spans"]``.  Outside a solve a
-span records nothing.
+span records nothing.  ``record(name, seconds, calls)`` adds to a span
+seconds that were measured elsewhere, such as the native core's per-rule
+profile, with a count of its own.
 
 While a profiler is on (``torch.autograd._profiler_enabled()``, which also
 sees a profiler enabled through ``torch.autograd.profiler``'s low-level
@@ -38,7 +40,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["SolveMetrics", "SpanRecorder", "recording", "span"]
+__all__ = ["SolveMetrics", "SpanRecorder", "record", "recording", "span"]
 
 SPAN_PREFIX = "mwvc."  # a span's range name in a profiler trace
 
@@ -53,9 +55,9 @@ class SpanRecorder:
         self.seconds: dict[str, float] = {}
         self.calls: dict[str, int] = {}
 
-    def add(self, name: str, seconds: float):
+    def add(self, name: str, seconds: float, calls: int = 1):
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds
-        self.calls[name] = self.calls.get(name, 0) + 1
+        self.calls[name] = self.calls.get(name, 0) + calls
 
     def as_dict(self) -> dict:
         return {k: {"seconds": v, "calls": self.calls[k]}
@@ -72,6 +74,15 @@ def recording():
         yield rec
     finally:
         _RECORDER.reset(token)
+
+
+def record(name: str, seconds: float, calls: int):
+    """Add ``seconds`` measured elsewhere (by the native core's own clock)
+    and a count of ``calls`` to the current solve's span ``name``; nothing
+    outside a solve.  Such a span opens no profiler range."""
+    rec = _RECORDER.get()
+    if rec is not None:
+        rec.add(name, seconds, calls)
 
 
 class span:

@@ -235,7 +235,11 @@ def test_a_planted_fault_is_not_correct(runs, plant, check):
 
 READERS = ("cover_s", "reduce_s", "peel_s", "score_s", "components_s",
            "k1_roofline.cover", "device_idle.cover", "read_s", "output_s",
-           "reduce_rate", "meta_bound_share")
+           "reduce_rate", "meta_bound_share", "rule_s.neighborhood",
+           "rule_s.twin", "rule_s.domination", "rule_s.isolated",
+           "rule_s.independent_fold", "rule_s.neighbor_meta",
+           "rule_s.neighborhood_meta", "critical_s", "components_scan_s",
+           "rule_fire_share")
 
 
 @pytest.fixture(scope="module")

@@ -117,6 +117,13 @@ def _ranges(events):
 # ``score.forward``, launches nothing and opens one)
 LAUNCHING = {"score", "score.upload", "score.refresh", "handoff", "assist",
              "assist.dispatch"}
+# children of these spans come from the native core's own clock
+# (``utils.metrics.record``): they open no range either
+CORE_MEASURED = ("reduce", "peel", "components")
+
+
+def measured_in_core(name):
+    return "." in name and name.split(".")[0] in CORE_MEASURED
 
 
 def test_spans_are_profiler_ranges_under_a_user_scope_profiler():
@@ -134,7 +141,7 @@ def test_spans_are_profiler_ranges_under_a_user_scope_profiler():
     for name, _a, _b in ranges:
         calls[name] = calls.get(name, 0) + 1
     assert calls == {k: v["calls"] for k, v in spans.items()
-                     if k not in LAUNCHING}
+                     if k not in LAUNCHING and not measured_in_core(k)}
     assert {"assist.sample", "assist.extract", "assist.apply", "search",
             "kick", "peel", "score.forward"} <= set(calls)
     tops = sorted((a, b) for n, a, b in ranges if "." not in n)

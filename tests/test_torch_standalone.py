@@ -31,7 +31,8 @@ JAX_PKG = os.path.join(REPO, "gnn_mwvc_tpu")
 # which decide as the JAX copy's rules do, and their counts (solver.hpp,
 # capi.cpp); and by one addition, the entry that applies a whole region
 # batch in one call (capi.cpp), and the METIS reader's two passes (capi.cpp
-# over ``PORT_ONLY``'s metisio.hpp, which the JAX package does not have).
+# over ``PORT_ONLY``'s metisio.hpp, which the JAX package does not have);
+# and by the solver's per-rule profile and its entry (solver.hpp, capi.cpp).
 # Per file, each entry is the JAX copy's text and the first and last lines
 # of the port's text in its place.
 REPAIRS = {
@@ -88,6 +89,31 @@ REPAIRS = {
          "            }\n        meta_solved++;\n"),
         ("", "    parent.dependent_folds += child.dependent_folds;\n",
          "child.meta_solved;\n"),
+        # the profile: struct Profile and now_ns, Solver::prof, reduce()'s
+        # clock and counts, peel()'s decisions, solve_small_components'
+        # search and exact solves
+        ("", "\n// Where a Solver's time goes", "        .count();\n}\n"),
+        ("", "    Profile prof;", "(Profile)\n"),
+        ("", "            u32 timed = NUM_LOCAL_RULES;",
+         "            u64 t0 = 0;\n"),
+        ("", "                if (rule != timed) {\n",
+         "                    t0 = t;\n                }\n"),
+        ("", "                prof.evals[rule]++;\n",
+         "                prof.evals[rule]++;\n"),
+        ("                if (found)\n                    rule = 0;\n"
+         "            }\n            if (do_critical)\n"
+         "                critical = rule_critical_weight();\n",
+         "                if (found) {\n                    prof.fires",
+         "                prof.critical_ns += now_ns() - t;\n            }\n"),
+        ("", "                u64 t = now_ns();\n                if (use_gnn",
+         "                u64 t = now_ns();\n"),
+        ("", "                prof.select_calls++;\n",
+         "                prof.select_ns += now_ns() - t;\n"),
+        ("", "    u64 t_call = now_ns();\n", "    u64 t_call = now_ns();\n"),
+        ("        if (comp.size() < limit)\n"
+         "            medium_solve(*this, comp);\n    }\n",
+         "        if (comp.size() < limit) {\n",
+         "    prof.components_ns += now_ns() - t_call;\n"),
     ],
     "capi.cpp": [
         ("", "\n// Folds on a dependent neighbourhood",
@@ -99,6 +125,9 @@ REPAIRS = {
         ("", '#include "metisio.hpp"\n', '#include "metisio.hpp"\n'),
         ("", "\n// METIS files (metisio.hpp)",
          "    metis_csr(n, up_count, upper, kept, indptr, indices);\n}\n"),
+        # the profile's entry
+        ("", "\n// The solver's profile (solver.hpp's Profile)",
+         "    return k;\n}\n"),
     ],
 }
 PORT_ONLY = ("metisio.hpp",)
